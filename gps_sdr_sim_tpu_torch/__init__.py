@@ -1,22 +1,25 @@
 """gps-sdr-sim-torch: the GPS L1 C/A synthesizer on PyTorch and CUDA.
 
-A port of gps_sdr_sim_tpu (JAX/Pallas) to one NVIDIA Hopper GPU. The JAX
+A port of gps_sdr_sim_tpu (JAX/Pallas) to NVIDIA Hopper GPUs. The JAX
 package stays the reference; each module here is checked against its
 counterpart byte for byte.
 
-Reused as they are, not copied (they are NumPy and import no JAX):
-gps_sdr_sim_tpu.constants, .models (scenario, orbits, observables, nav
-message), .utils (coord, cstd, gpstime), .ops.plan (epoch planning and the
-[B, C, 12] int32 wire), .ops.tables (sin/cos table), and the JAX-free
-helpers of .cli (argument actions, build_config, the JSON summary).
+Copied, with only their import paths changed (the output bytes depend on
+their float64 arithmetic, which stays as it is): constants.py, utils/
+(coord, cstd, gpstime), models/ (scenario, orbits, observables, nav
+message), ops/plan.py (epoch planning and the [B, C, 12] int32 wire) and
+ops/tables.py (sin/cos table). tests/test_torch_hostlayer.py holds the
+copy to the original.
 
 Ported (same module names): ops/synth.py + ops/synth_cuda.py +
 csrc/synth.cu (the fused Pallas synthesis kernel and its rebase prologue,
-as one hand-written sm_90a CUDA kernel, with its plain PyTorch version),
-ops/quantize.py, runner.py and cli.py. testing.py holds the golden
+as one hand-written sm_90a CUDA kernel with three output modes, each with
+its plain PyTorch version), ops/quantize.py, parallel/ (mesh, sharded
+synthesis, shard files), runner.py and cli.py. testing.py holds the golden
 criterion for tests and chip_smoke.py.
 
-This package never imports JAX: the machine with the card has none.
+This package imports neither JAX nor gps_sdr_sim_tpu: the machine with
+the card has no JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,20 @@
 // Fused GPS L1 C/A I/Q synthesis for NVIDIA Hopper (sm_90a).
 //
 // Replaces gps_sdr_sim_tpu/ops/synth_pallas.py: the Pallas kernel
-// `_make_kernel` (per-sample synthesis, summed over channels, quantized
-// and packed into the final SC16/SC08/SC01 words) together with the XLA
-// prologue `_wire_to_params` / `_device_rebase` / `_unpack_wire` (the exact
-// per-sub-block phase rebase). The rebase runs here in the block prologue,
-// so no per-sub-block parameter array ever reaches device memory.
+// `_make_kernel` (per-sample synthesis, summed over channels) together with
+// the XLA prologue `_wire_to_params` / `_device_rebase` / `_unpack_wire`
+// (the exact per-sub-block phase rebase). The rebase runs here in the block
+// prologue, so no per-sub-block parameter array ever reaches device memory.
+//
+// Output modes (the template value MODE), one per K1 variant:
+//   * kPacked: quantized and packed into the final SC16/SC08/SC01 words
+//     (`fmt` 16/8/1; the single-device path);
+//   * kPlanes: two int16 planes I and Q, (acc + 64) >> 7 wrapped to int16
+//     (`quantize=True, fmt=None`; the time-only sharded path,
+//     gps_sdr_sim_tpu/parallel/shard.py:158 with chan_n == 1);
+//   * kRaw: two int32 planes of the wrapped channel sums before the
+//     rounding shift (`quantize=False`; a chan shard's partial sums, which
+//     the caller adds across the chan axis before quantizing, shard.py:170).
 //
 // Arithmetic contract (identical to ops/plan.py and synth_pallas.py, so the
 // output words are bit-identical):
@@ -25,23 +34,25 @@
 //
 // What bounds it on an H100: integer ALU issue rate. Each (sample, channel)
 // costs two 64-bit multiply-adds, two floor divisions, two shared-memory
-// lookups (C/A word, sin/cos) and ~20 other integer ops; SC16 also writes
-// 4 bytes per sample (3.1 GB for the 300 s canonical run), which at HBM
-// rates is far below the ALU time. This first design is the simple one:
-// one block per (sub-block, epoch), 128 threads, each thread writing 16
-// samples' worth of output words, the 512-entry sin/cos table, the C/A
-// words and the rebased channel parameters held in shared memory. It
-// recomputes the ramps with multiplies instead of stepping them, and it
-// does not specialise on the rate or the gain. Those are later work.
+// lookups (C/A word, sin/cos) and ~20 other integer ops; the channel loop
+// is kept rolled so that its instruction count is the per-(sample, channel)
+// cost (chip_smoke.py reads it from cuobjdump -sass). SC16 writes 4 bytes
+// per sample, kRaw 8 (3.1 and 6.2 GB for the 300 s canonical run), which at
+// HBM rates is far below the ALU time. This first design is the simple
+// one: one block per (sub-block, epoch), 128 threads, each thread writing
+// whole 32-bit output words, the 512-entry sin/cos table, the C/A words
+// and the rebased channel parameters held in shared memory. It recomputes
+// the ramps with multiplies instead of stepping them, and it does not
+// specialise on the rate or the gain. Those are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kSubblock = 2048;  // gps_sdr_sim_tpu.constants.SUBBLOCK
-constexpr int kMaxChan = 16;     // gps_sdr_sim_tpu.constants.MAX_CHAN
-constexpr int kWireLanes = 12;   // gps_sdr_sim_tpu.ops.plan.WIRE_LANES
+constexpr int kSubblock = 2048;  // gps_sdr_sim_tpu_torch.constants.SUBBLOCK
+constexpr int kMaxChan = 16;     // gps_sdr_sim_tpu_torch.constants.MAX_CHAN
+constexpr int kWireLanes = 12;   // gps_sdr_sim_tpu_torch.ops.plan.WIRE_LANES
 constexpr int kThreads = 128;
 constexpr int kCaLen = 1023;
 constexpr uint64_t kMask40 = (uint64_t(1) << 40) - 1;
@@ -73,13 +84,17 @@ __device__ __forceinline__ uint64_t wire_u64(const int32_t* w, int lane) {
   return uint64_t(uint32_t(w[lane])) | (uint64_t(uint32_t(w[lane + 1])) << 32);
 }
 
-// Quantized (I, Q) of in-sub-block sample r, before the int16 wrap.
-__device__ __forceinline__ void sample_iq(int r, int n_chan, const Chan* ch,
-                                          const uint32_t* ca,
-                                          const int32_t* sin_t,
-                                          const int32_t* cos_t, int32_t* i_out,
-                                          int32_t* q_out) {
+// Channel sums (I, Q) of in-sub-block sample r over the first n_chan
+// channels, wrapped mod 2^32 like int32.
+__device__ __forceinline__ void accumulate_iq(int r, int n_chan,
+                                              const Chan* ch,
+                                              const uint32_t* ca,
+                                              const int32_t* sin_t,
+                                              const int32_t* cos_t,
+                                              uint32_t* i_acc,
+                                              uint32_t* q_acc) {
   uint32_t iacc = 0, qacc = 0;
+#pragma unroll 1
   for (int c = 0; c < n_chan; ++c) {
     const Chan& p = ch[c];
     uint64_t code = p.code_base + uint64_t(r) * p.code_step;
@@ -97,20 +112,50 @@ __device__ __forceinline__ void sample_iq(int r, int n_chan, const Chan* ch,
     iacc += (vc ^ neg) - neg;
     qacc += (vs ^ neg) - neg;
   }
-  *i_out = int32_t(iacc + 64u) >> 7;
-  *q_out = int32_t(qacc + 64u) >> 7;
+  *i_acc = iacc;
+  *q_acc = qacc;
+}
+
+// (acc + 64) >> 7, arithmetic, before the int16 wrap.
+__device__ __forceinline__ int32_t quantize(uint32_t acc) {
+  return int32_t(acc + 64u) >> 7;
+}
+
+// Quantized (I, Q) of in-sub-block sample r, before the int16 wrap.
+__device__ __forceinline__ void sample_iq(int r, int n_chan, const Chan* ch,
+                                          const uint32_t* ca,
+                                          const int32_t* sin_t,
+                                          const int32_t* cos_t, int32_t* i_out,
+                                          int32_t* q_out) {
+  uint32_t iacc, qacc;
+  accumulate_iq(r, n_chan, ch, ca, sin_t, cos_t, &iacc, &qacc);
+  *i_out = quantize(iacc);
+  *q_out = quantize(qacc);
 }
 
 __device__ __forceinline__ int32_t wrap16(int32_t v) { return int16_t(v); }
 
-template <int FMT>
+enum Mode { kPacked = 0, kPlanes = 1, kRaw = 2 };
+
+// Output 32-bit words per sample block of kSubblock samples (per plane for
+// kPlanes and kRaw).
+template <int MODE, int FMT>
+__host__ __device__ constexpr int words_per_subblock() {
+  return MODE == kPlanes ? kSubblock / 2
+         : MODE == kRaw  ? kSubblock
+         : kSubblock / (FMT == 16 ? 1 : (FMT == 8 ? 2 : 16));
+}
+
+// out: the packed words (kPacked) or the I plane; out_q: the Q plane
+// (kPlanes, kRaw; unused for kPacked).
+template <int MODE, int FMT>
 __global__ void __launch_bounds__(kThreads)
 synth_wire_kernel(const int32_t* __restrict__ wire,
                   const int32_t* __restrict__ ca_words,
                   const int32_t* __restrict__ table,
-                  int32_t* __restrict__ out, int wire_chans, int n_chan) {
-  constexpr int kDiv = FMT == 16 ? 1 : (FMT == 8 ? 2 : 16);
-  constexpr int kWords = kSubblock / kDiv;  // output words per sub-block
+                  int32_t* __restrict__ out, int32_t* __restrict__ out_q,
+                  int wire_chans, int n_chan) {
+  constexpr int kWords = words_per_subblock<MODE, FMT>();
 
   __shared__ int32_t sin_t[512];
   __shared__ int32_t cos_t[512];
@@ -156,13 +201,29 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
   }
   __syncthreads();
 
-  int32_t* o = out + (size_t(b) * sub_blocks + sb) * kWords;
+  const size_t row = (size_t(b) * sub_blocks + sb) * kWords;
+  int32_t* o = out + row;
   for (int wi = threadIdx.x; wi < kWords; wi += kThreads) {
     int32_t iv, qv;
-    if (FMT == 16) {
+    if constexpr (MODE == kPlanes) {
+      // Two adjacent int16 samples per word and plane, the earlier one in
+      // the low half (little-endian int16 order).
+      uint32_t i_lo, q_lo, i_hi, q_hi;
+      accumulate_iq(2 * wi, n_chan, ch, ca, sin_t, cos_t, &i_lo, &q_lo);
+      accumulate_iq(2 * wi + 1, n_chan, ch, ca, sin_t, cos_t, &i_hi, &q_hi);
+      o[wi] = int32_t((uint32_t(quantize(i_lo)) & 0xFFFFu) |
+                      (uint32_t(quantize(i_hi)) << 16));
+      out_q[row + wi] = int32_t((uint32_t(quantize(q_lo)) & 0xFFFFu) |
+                                (uint32_t(quantize(q_hi)) << 16));
+    } else if constexpr (MODE == kRaw) {
+      uint32_t ia, qa;
+      accumulate_iq(wi, n_chan, ch, ca, sin_t, cos_t, &ia, &qa);
+      o[wi] = int32_t(ia);
+      out_q[row + wi] = int32_t(qa);
+    } else if constexpr (FMT == 16) {
       sample_iq(wi, n_chan, ch, ca, sin_t, cos_t, &iv, &qv);
       o[wi] = int32_t((uint32_t(iv) & 0xFFFFu) | (uint32_t(qv) << 16));
-    } else if (FMT == 8) {
+    } else if constexpr (FMT == 8) {
       uint32_t word = 0;
       for (int k = 0; k < 2; ++k) {
         sample_iq(2 * wi + k, n_chan, ch, ca, sin_t, cos_t, &iv, &qv);
@@ -186,6 +247,22 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
   }
 }
 
+template <int MODE, int FMT>
+int launch(const int32_t* wire, const int32_t* ca_words, const int32_t* table,
+           int32_t* out, int32_t* out_q, int n_epochs, int wire_chans,
+           int n_chan, int sub_blocks, void* stream) {
+  dim3 grid(sub_blocks, n_epochs);
+  synth_wire_kernel<MODE, FMT>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          wire, ca_words, table, out, out_q, wire_chans, n_chan);
+  return int(cudaGetLastError());
+}
+
+bool bad_shape(int n_epochs, int wire_chans, int n_chan, int sub_blocks) {
+  return n_chan < 1 || n_chan > kMaxChan || n_chan > wire_chans ||
+         n_epochs < 1 || n_epochs > 65535 || sub_blocks < 1;
+}
+
 }  // namespace
 
 // Launch on `stream` and return cudaGetLastError() (0 on success).
@@ -197,27 +274,45 @@ extern "C" int synth_wire_launch(const int32_t* wire, const int32_t* ca_words,
                                  const int32_t* table, int32_t* out,
                                  int n_epochs, int wire_chans, int n_chan,
                                  int sub_blocks, int fmt, void* stream) {
-  if (n_chan < 1 || n_chan > kMaxChan || n_chan > wire_chans ||
-      n_epochs < 1 || n_epochs > 65535 || sub_blocks < 1) {
+  if (bad_shape(n_epochs, wire_chans, n_chan, sub_blocks)) {
     return int(cudaErrorInvalidValue);
   }
-  dim3 grid(sub_blocks, n_epochs);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
     case 16:
-      synth_wire_kernel<16><<<grid, kThreads, 0, s>>>(wire, ca_words, table,
-                                                      out, wire_chans, n_chan);
-      break;
+      return launch<kPacked, 16>(wire, ca_words, table, out, nullptr,
+                                 n_epochs, wire_chans, n_chan, sub_blocks,
+                                 stream);
     case 8:
-      synth_wire_kernel<8><<<grid, kThreads, 0, s>>>(wire, ca_words, table,
-                                                     out, wire_chans, n_chan);
-      break;
+      return launch<kPacked, 8>(wire, ca_words, table, out, nullptr,
+                                n_epochs, wire_chans, n_chan, sub_blocks,
+                                stream);
     case 1:
-      synth_wire_kernel<1><<<grid, kThreads, 0, s>>>(wire, ca_words, table,
-                                                     out, wire_chans, n_chan);
-      break;
+      return launch<kPacked, 1>(wire, ca_words, table, out, nullptr,
+                                n_epochs, wire_chans, n_chan, sub_blocks,
+                                stream);
     default:
       return int(cudaErrorInvalidValue);
   }
-  return int(cudaGetLastError());
+}
+
+// The I/Q plane modes, same arguments as synth_wire_launch but two outputs:
+// quantize = 1 (kPlanes): out_i, out_q [n_epochs, sub_blocks * 2048] int16;
+// quantize = 0 (kRaw):    out_i, out_q [n_epochs, sub_blocks * 2048] int32.
+extern "C" int synth_wire_iq_launch(const int32_t* wire,
+                                    const int32_t* ca_words,
+                                    const int32_t* table, void* out_i,
+                                    void* out_q, int n_epochs, int wire_chans,
+                                    int n_chan, int sub_blocks, int quantize,
+                                    void* stream) {
+  if (bad_shape(n_epochs, wire_chans, n_chan, sub_blocks)) {
+    return int(cudaErrorInvalidValue);
+  }
+  int32_t* oi = static_cast<int32_t*>(out_i);
+  int32_t* oq = static_cast<int32_t*>(out_q);
+  if (quantize) {
+    return launch<kPlanes, 0>(wire, ca_words, table, oi, oq, n_epochs,
+                              wire_chans, n_chan, sub_blocks, stream);
+  }
+  return launch<kRaw, 0>(wire, ca_words, table, oi, oq, n_epochs, wire_chans,
+                         n_chan, sub_blocks, stream);
 }

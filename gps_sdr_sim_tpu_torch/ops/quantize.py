@@ -1,8 +1,15 @@
-"""Packed output words -> file bytes, and their checksum.
+"""Output sample-format packing, packed output words -> file bytes, and
+their checksum.
 
-Counterpart of the packed-word helpers of gps_sdr_sim_tpu/ops/quantize.py.
-The kernel epilogue already writes the final SC16/SC08/SC01 stream
-(ops/synth.py), so nothing here re-packs samples.
+Counterpart of gps_sdr_sim_tpu/ops/quantize.py. On the single-device path
+the kernel epilogue already writes the final SC16/SC08/SC01 stream
+(ops/synth.py) and only words_to_bytes is needed; the sharded path
+(parallel/shard.py) returns [B, N, 2] int16 samples, which pack() turns
+into the format's bytes on their device (gpssim.c:2266-2288):
+ - SC16: int16 I/Q pairs as they are;
+ - SC08: arithmetic >> 4 of each int16 sample, wrapped to int8;
+ - SC01: the sign bit (sample > 0) of each interleaved I/Q value packed
+   MSB-first, 4 IQ pairs per byte: {I0,Q0,I1,Q1,I2,Q2,I3,Q3}.
 """
 
 from __future__ import annotations
@@ -11,6 +18,42 @@ import numpy as np
 import torch
 
 from gps_sdr_sim_tpu_torch.ops.synth import packed_bytes
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_sc16(iq: torch.Tensor) -> torch.Tensor:
+    """[B, N, 2] int16 -> int16 interleaved I/Q (layout already correct)."""
+    return iq
+
+
+def pack_sc08(iq: torch.Tensor) -> torch.Tensor:
+    """[B, N, 2] int16 -> int8 via arithmetic >> 4 (the low byte kept, as
+    JAX's astype(int8) keeps it)."""
+    return ((iq >> 4) & 0xFF).to(torch.uint8).view(torch.int8)
+
+
+def pack_sc01(iq: torch.Tensor) -> torch.Tensor:
+    """[B, N, 2] int16 -> [B, N//4] uint8, sign bits packed MSB-first.
+
+    Like the reference (gpssim.c:2266-2276, loop bound iq_buff_size/4),
+    a trailing partial group of <4 IQ pairs is dropped."""
+    b, n, _ = iq.shape
+    n4 = n // 4
+    bits = (iq[:, :n4 * 4] > 0).reshape(b, n4, 8).to(torch.int32)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=iq.device)
+    return (bits * weights).sum(dim=-1).to(torch.uint8)
+
+
+def pack(iq: torch.Tensor, data_format: int) -> torch.Tensor:
+    if data_format == 16:
+        return pack_sc16(iq)
+    if data_format == 8:
+        return pack_sc08(iq)
+    if data_format == 1:
+        return pack_sc01(iq)
+    raise ValueError(f"Invalid I/Q data format: {data_format}")
+
 
 # Element type each format's checksum reads: SC16 int16 samples, SC08 int8
 # samples, SC01 the packed bytes.

@@ -10,8 +10,13 @@ packed_bytes(n_out, fmt) bytes are valid.
 `synth_wire` is the kernel's wrapper: on a CUDA tensor it launches the
 hand-written kernel (csrc/synth.cu, via ops/synth_cuda.py) or raises; on a
 CPU tensor it runs `synth_wire_ref`. `synth_wire_ref` is the plain version,
-on any device. The arithmetic, which both follow exactly, is spelled out at
-the top of csrc/synth.cu; `_channel_contribution` in
+on any device. `synth_wire_planes` and `synth_wire_raw` are the wrappers of
+the kernel's two other output modes, the K1 variants of the sharded path
+(parallel/shard.py): the int16 I and Q planes after (acc + 64) >> 7, and
+the raw int32 channel sums before it, each [B, SB * SUBBLOCK]; their plain
+versions are `synth_wire_planes_ref` and `synth_wire_raw_ref`. The
+arithmetic, which all of them follow exactly, is spelled out at the top of
+csrc/synth.cu; `_channel_contribution` in
 gps_sdr_sim_tpu/ops/synth_jnp.py is the readable statement of what it
 computes.
 """
@@ -24,9 +29,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gps_sdr_sim_tpu.constants import CA_SEQ_LEN, MAX_CHAN, SUBBLOCK
-from gps_sdr_sim_tpu.ops.plan import WIRE_LANES, pack_epoch_wire
-from gps_sdr_sim_tpu.ops.tables import COS_TABLE512, SIN_TABLE512
+from gps_sdr_sim_tpu_torch.constants import CA_SEQ_LEN, MAX_CHAN, SUBBLOCK
+from gps_sdr_sim_tpu_torch.ops.plan import WIRE_LANES, pack_epoch_wire
+from gps_sdr_sim_tpu_torch.ops.tables import COS_TABLE512, SIN_TABLE512
 
 # Samples per int32 output word: SC16 one I/Q pair, SC08 two, SC01 sixteen.
 PACK_DIV = {16: 1, 8: 2, 1: 16}
@@ -34,7 +39,7 @@ PACK_DIV = {16: 1, 8: 2, 1: 16}
 _MASK40 = (1 << 40) - 1
 
 # Launches of the hand-written kernel, counted where the wrapper launches it.
-launch_counts = {"synth_wire": 0}
+launch_counts = {"synth_wire": 0, "synth_wire_planes": 0, "synth_wire_raw": 0}
 
 
 def packed_bytes(n_out: int, fmt: int) -> int:
@@ -63,7 +68,7 @@ def trig_table(device) -> torch.Tensor:
     return t
 
 
-def _ca_device(ca_words: np.ndarray, device) -> torch.Tensor:
+def ca_device(ca_words: np.ndarray, device) -> torch.Tensor:
     """Per-segment C/A words are identical across a segment's batches:
     upload each table once per device."""
     device = torch.device(device)
@@ -98,7 +103,7 @@ def stage_epochs(eb, device) -> Staged:
     if device.type == "cuda":
         host = host.pin_memory()
     wire = host.to(device, non_blocking=True)
-    return Staged(wire, _ca_device(eb.ca_words, device), max(eb.n_chan, 1))
+    return Staged(wire, ca_device(eb.ca_words, device), max(eb.n_chan, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +157,9 @@ def _unpack(wire: torch.Tensor) -> dict:
                 gain=w[..., 11])
 
 
-def _quantized_iq(wire, ca_words, n_chan: int, sub_blocks: int):
-    """(I, Q) after (acc + 64) >> 7, int64 [B, SB, SUBBLOCK], before the
-    int16 wrap."""
+def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int):
+    """Channel sums (I, Q) over the first n_chan channels, int64
+    [B, SB, SUBBLOCK], before the int32 wrap."""
     dev = wire.device
     u = _unpack(wire)
     k0 = (torch.arange(sub_blocks, device=dev, dtype=torch.int64)
@@ -186,8 +191,25 @@ def _quantized_iq(wire, ca_words, n_chan: int, sub_blocks: int):
         g = col("gain")[..., None] * sign
         iacc += g * tbl[1][idx]
         qacc += g * tbl[0][idx]
-    return (_wrap32(_wrap32(iacc) + 64) >> 7,
-            _wrap32(_wrap32(qacc) + 64) >> 7)
+    return iacc, qacc
+
+
+def _quantize_acc(acc: torch.Tensor) -> torch.Tensor:
+    """(acc + 64) >> 7 of int32 channel sums (any integer dtype, values
+    taken mod 2^32 like int32), as int64, before the int16 wrap."""
+    return _wrap32(_wrap32(acc.to(torch.int64)) + 64) >> 7
+
+
+def quantize_int16(acc: torch.Tensor) -> torch.Tensor:
+    """(acc + 64) >> 7 of int32 channel sums, wrapped to int16."""
+    return _wrap16(_quantize_acc(acc)).to(torch.int16)
+
+
+def _quantized_iq(wire, ca_words, n_chan: int, sub_blocks: int):
+    """(I, Q) after (acc + 64) >> 7, int64 [B, SB, SUBBLOCK], before the
+    int16 wrap."""
+    iacc, qacc = _accumulate_iq(wire, ca_words, n_chan, sub_blocks)
+    return _quantize_acc(iacc), _quantize_acc(qacc)
 
 
 def synth_wire_ref(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
@@ -216,14 +238,30 @@ def synth_wire_ref(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
     return _wrap32(words).to(torch.int32)
 
 
+def synth_wire_planes_ref(wire: torch.Tensor, ca_words: torch.Tensor,
+                          n_chan: int, n_out: int):
+    """Plain version of the planes mode: (I, Q), each [B, SB * SUBBLOCK]
+    int16, (acc + 64) >> 7 wrapped to int16."""
+    B = wire.shape[0]
+    i, q = _accumulate_iq(wire, ca_words, n_chan, -(-n_out // SUBBLOCK))
+    return tuple(quantize_int16(x).reshape(B, -1) for x in (i, q))
+
+
+def synth_wire_raw_ref(wire: torch.Tensor, ca_words: torch.Tensor,
+                       n_chan: int, n_out: int):
+    """Plain version of the raw mode: (I, Q), each [B, SB * SUBBLOCK]
+    int32, the channel sums wrapped mod 2^32 before the rounding shift."""
+    B = wire.shape[0]
+    i, q = _accumulate_iq(wire, ca_words, n_chan, -(-n_out // SUBBLOCK))
+    return tuple(_wrap32(x).reshape(B, -1).to(torch.int32) for x in (i, q))
+
+
 # ---------------------------------------------------------------------------
 # The wrapper.
 # ---------------------------------------------------------------------------
 
 
-def _check(wire, ca_words, n_chan: int, n_out: int, fmt: int) -> None:
-    if fmt not in PACK_DIV:
-        raise ValueError(f"Invalid I/Q data format: {fmt}")
+def _check(wire, ca_words, n_chan: int, n_out: int) -> None:
     if wire.dtype != torch.int32 or ca_words.dtype != torch.int32:
         raise TypeError("wire and ca_words must be int32")
     if wire.dim() != 3 or wire.shape[2] != WIRE_LANES:
@@ -243,6 +281,8 @@ def _check(wire, ca_words, n_chan: int, n_out: int, fmt: int) -> None:
         raise ValueError("wire and ca_words are on different devices")
     if not (wire.is_contiguous() and ca_words.is_contiguous()):
         raise ValueError("wire and ca_words must be contiguous")
+    if wire.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {wire.device}")
 
 
 def synth_wire(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
@@ -251,11 +291,11 @@ def synth_wire(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
 
     CUDA tensors go through the hand-written kernel (a build or launch
     failure raises); CPU tensors through synth_wire_ref."""
-    _check(wire, ca_words, n_chan, n_out, fmt)
+    if fmt not in PACK_DIV:
+        raise ValueError(f"Invalid I/Q data format: {fmt}")
+    _check(wire, ca_words, n_chan, n_out)
     if wire.device.type == "cpu":
         return synth_wire_ref(wire, ca_words, n_chan, n_out, fmt)
-    if wire.device.type != "cuda":
-        raise ValueError(f"no kernel for device {wire.device}")
     from gps_sdr_sim_tpu_torch.ops import synth_cuda
 
     out = torch.empty((wire.shape[0], words_per_epoch(n_out, fmt)),
@@ -264,6 +304,45 @@ def synth_wire(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
                       -(-n_out // SUBBLOCK), fmt)
     launch_counts["synth_wire"] += 1
     return out
+
+
+def _synth_iq(wire, ca_words, n_chan: int, n_out: int, quantize: bool):
+    _check(wire, ca_words, n_chan, n_out)
+    if wire.device.type == "cpu":
+        ref = synth_wire_planes_ref if quantize else synth_wire_raw_ref
+        return ref(wire, ca_words, n_chan, n_out)
+    from gps_sdr_sim_tpu_torch.ops import synth_cuda
+
+    sub_blocks = -(-n_out // SUBBLOCK)
+    dtype = torch.int16 if quantize else torch.int32
+    out_i, out_q = (torch.empty((wire.shape[0], sub_blocks * SUBBLOCK),
+                                dtype=dtype, device=wire.device)
+                    for _ in range(2))
+    synth_cuda.launch_iq(wire, ca_words, trig_table(wire.device), out_i,
+                         out_q, n_chan, sub_blocks, quantize)
+    launch_counts["synth_wire_planes" if quantize else "synth_wire_raw"] += 1
+    return out_i, out_q
+
+
+def synth_wire_planes(wire: torch.Tensor, ca_words: torch.Tensor,
+                      n_chan: int, n_out: int):
+    """[B, C, 12] wire -> (I, Q), each [B, SB * SUBBLOCK] int16: the
+    Pallas kernel's quantize=True, fmt=None variant.
+
+    CUDA tensors go through the hand-written kernel (a build or launch
+    failure raises); CPU tensors through synth_wire_planes_ref."""
+    return _synth_iq(wire, ca_words, n_chan, n_out, quantize=True)
+
+
+def synth_wire_raw(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
+                   n_out: int):
+    """[B, C, 12] wire -> (I, Q), each [B, SB * SUBBLOCK] int32 channel
+    sums before (acc + 64) >> 7: the Pallas kernel's quantize=False
+    variant, a chan shard's partial sums.
+
+    CUDA tensors go through the hand-written kernel (a build or launch
+    failure raises); CPU tensors through synth_wire_raw_ref."""
+    return _synth_iq(wire, ca_words, n_chan, n_out, quantize=False)
 
 
 def synth_staged_packed(staged: Staged, n_out: int, fmt: int = 16,

@@ -80,29 +80,57 @@ def load():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.synth_wire_iq_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def _check_devices(wire: torch.Tensor, *others: torch.Tensor) -> None:
+    for t in others:
+        if t.device != wire.device:
+            raise ValueError(f"tensor on {t.device}, expected {wire.device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+def _call(fn_name: str, wire: torch.Tensor, *args) -> None:
+    """Call a launcher of the library on the current stream of wire's
+    device and raise on a non-zero cudaGetLastError()."""
+    lib = load()
+    dev = wire.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+
+
 def launch(wire: torch.Tensor, ca_words: torch.Tensor, table: torch.Tensor,
            out: torch.Tensor, n_chan: int, sub_blocks: int, fmt: int) -> None:
-    """Enqueue the kernel on the current stream of wire's device.
+    """Enqueue the packed-word kernel on the current stream of wire's
+    device.
 
     The caller (ops.synth.synth_wire) has checked shapes, types and
     contiguity and allocated `out`; this checks devices and raises on a
     non-zero cudaGetLastError()."""
-    dev = wire.device
-    for t in (ca_words, table, out):
-        if t.device != dev:
-            raise ValueError(f"tensor on {t.device}, expected {dev}")
-    if not (table.is_contiguous() and out.is_contiguous()):
-        raise ValueError("table and out must be contiguous")
-    lib = load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.synth_wire_launch(
-            wire.data_ptr(), ca_words.data_ptr(), table.data_ptr(),
-            out.data_ptr(), wire.shape[0], wire.shape[1], n_chan,
-            sub_blocks, fmt, stream)
-    if err != 0:
-        raise RuntimeError(f"synth_wire_launch failed: CUDA error {err}")
+    _check_devices(wire, ca_words, table, out)
+    _call("synth_wire_launch", wire, wire.data_ptr(), ca_words.data_ptr(),
+          table.data_ptr(), out.data_ptr(), wire.shape[0], wire.shape[1],
+          n_chan, sub_blocks, fmt)
+
+
+def launch_iq(wire: torch.Tensor, ca_words: torch.Tensor, table: torch.Tensor,
+              out_i: torch.Tensor, out_q: torch.Tensor, n_chan: int,
+              sub_blocks: int, quantize: bool) -> None:
+    """Enqueue the I/Q plane kernel: int16 planes after (acc + 64) >> 7
+    (quantize=True) or the raw int32 channel sums (quantize=False).
+
+    The caller (ops.synth.synth_wire_planes / synth_wire_raw) has checked
+    the wire and allocated both planes."""
+    _check_devices(wire, ca_words, table, out_i, out_q)
+    _call("synth_wire_iq_launch", wire, wire.data_ptr(), ca_words.data_ptr(),
+          table.data_ptr(), out_i.data_ptr(), out_q.data_ptr(),
+          wire.shape[0], wire.shape[1], n_chan, sub_blocks, int(quantize))

@@ -1,13 +1,18 @@
 """End-to-end simulation runner: scenario -> device batches -> output file.
 
-Counterpart of gps_sdr_sim_tpu/runner.py on the single-device packed path.
-Per batch of 0.1 s epochs the host plans (NumPy, ops/plan.py), uploads the
-wire from pinned memory without waiting, launches the synthesis, and starts
-an asynchronous device-to-host copy, all on the device's current stream; so
-the host plans batch k+1 while the device runs batch k. The writer drains
-batches in order, so the byte stream is the reference's sequential one.
-Batches are padded to `batch_epochs` with gain-0 epochs, and only the valid
-epochs are written.
+Counterpart of gps_sdr_sim_tpu/runner.py. Per batch of 0.1 s epochs the
+host plans (NumPy, ops/plan.py), uploads the wire from pinned memory
+without waiting, launches the synthesis, and starts an asynchronous
+device-to-host copy, all on the device's current stream; so the host plans
+batch k+1 while the device runs batch k. The writer drains batches in
+order, so the byte stream is the reference's sequential one. Batches are
+padded to `batch_epochs` with gain-0 epochs, and only the valid epochs are
+written.
+
+The sharded impls run parallel/shard.py over a mesh of devices: its
+[B, n_out, 2] samples, one piece per time shard, are packed into the
+format's bytes on their devices (ops/quantize.pack), and each piece is read
+back with its own event; a batch is written once every piece has landed.
 """
 
 from __future__ import annotations
@@ -21,12 +26,15 @@ from typing import BinaryIO, Callable, Optional
 import numpy as np
 import torch
 
-from gps_sdr_sim_tpu.models.scenario import Scenario
-from gps_sdr_sim_tpu.ops.plan import pad_epochs, plan_epochs
+from gps_sdr_sim_tpu_torch.models.scenario import Scenario
+from gps_sdr_sim_tpu_torch.ops.plan import pad_epochs, plan_epochs
 from gps_sdr_sim_tpu_torch.ops import synth
-from gps_sdr_sim_tpu_torch.ops.quantize import words_to_bytes
+from gps_sdr_sim_tpu_torch.ops.quantize import pack, words_to_bytes
 
-IMPLS = ("cuda", "torch")
+# cuda / torch: the packed-word kernel or its plain version on one device;
+# cuda-sharded / torch-sharded: the counterparts of the JAX package's
+# pallas-sharded / xla-sharded, over a mesh (parallel/shard.py).
+IMPLS = ("cuda", "torch", "cuda-sharded", "torch-sharded")
 
 # Batches in flight before the writer blocks on the oldest.
 _QUEUE_DEPTH = 4
@@ -85,10 +93,11 @@ def resolve_device(impl: str, device) -> torch.device:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     device = torch.device(device)
-    if impl == "cuda" and device.type != "cuda":
-        raise ValueError(f"impl 'cuda' runs the CUDA kernel and needs a CUDA "
-                         f"device, got '{device}'; impl 'torch' runs the "
-                         f"plain PyTorch version on any device")
+    if impl.startswith("cuda") and device.type != "cuda":
+        raise ValueError(f"impl '{impl}' runs the CUDA kernel and needs a "
+                         f"CUDA device, got '{device}'; impl "
+                         f"'{impl.replace('cuda', 'torch')}' runs the plain "
+                         f"PyTorch version on any device")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"CUDA device '{device}' is not available")
     return device
@@ -109,45 +118,71 @@ def fetch_async(out: torch.Tensor):
 def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
                     batch_epochs: int = 20,
                     log: Optional[Callable[[str], None]] = None,
-                    impl: str = "cuda", device="cuda") -> RunStats:
+                    impl: str = "cuda", device="cuda",
+                    mesh=None) -> RunStats:
     """Synthesize output epochs [lo, hi) of `scn` into `fp`.
 
     impl: "cuda" (the hand-written kernel; needs a CUDA device) or "torch"
-    (the kernel's plain PyTorch version, on `device`)."""
+    (the kernel's plain PyTorch version, on `device`); "cuda-sharded" or
+    "torch-sharded" run the same over `mesh` (parallel.mesh.Mesh; default
+    auto_mesh over every local device of `device`'s type)."""
     if log is None:
         log = lambda s: print(s, end="", file=sys.stderr, flush=True)
     device = resolve_device(impl, device)
+    sharded = impl.endswith("-sharded")
+    plain = impl.startswith("torch")
+    if sharded:
+        from gps_sdr_sim_tpu_torch.parallel.mesh import auto_mesh
+        from gps_sdr_sim_tpu_torch.parallel.shard import synth_epochs_sharded
+
+        if mesh is None:
+            mesh = auto_mesh(device=device)
+        if not plain and any(d.type != "cuda" for row in mesh.grid
+                             for d in row):
+            raise ValueError(f"impl '{impl}' runs the CUDA kernel and needs "
+                             f"a mesh of CUDA devices")
     n = scn.iq_buff_size
     fmt = scn.config.data_format
-    on_cuda = device.type == "cuda"
     stats = RunStats()
     t_start = time.time()
-    pending = deque()  # (host words, copy-done event or None, valid epochs)
+    # (pieces: [(host array or tensor, copy-done event or None)], valid
+    # epochs)
+    pending = deque()
 
     def flush(item):
-        host, done, valid = item
+        pieces, valid = item
         t0 = time.time()
-        if done is not None:
-            done.synchronize()
+        for _, done in pieces:
+            if done is not None:
+                done.synchronize()
         t1 = time.time()
-        fp.write(np.ascontiguousarray(
-            words_to_bytes(host.numpy()[:valid], n, fmt)).data)
+        for host, _ in pieces:
+            rows = host.numpy()[:valid]
+            if len(rows) == 0:
+                break
+            valid -= len(rows)
+            if not sharded:
+                rows = words_to_bytes(rows, n, fmt)
+            fp.write(np.ascontiguousarray(rows).reshape(-1).view(np.uint8)
+                     .data)
         stats.fetch_seconds += t1 - t0
         stats.write_seconds += time.time() - t1
 
     for seg, e, e1 in iter_seg_batches(scn, lo, hi, batch_epochs):
         t_plan = time.time()
-        staged = synth.stage_epochs(pad_epochs(
-            plan_epochs(seg, e, e1, scn.delt), batch_epochs), device)
-        out = synth.synth_staged_packed(staged, n, fmt,
-                                        plain=impl == "torch")
-        done = None
-        if on_cuda:
-            out, done = fetch_async(out)
+        eb = pad_epochs(plan_epochs(seg, e, e1, scn.delt), batch_epochs)
+        if sharded:
+            outs = [pack(p, fmt) for p in synth_epochs_sharded(
+                eb, n, mesh, plain=plain)]
+        else:
+            outs = [synth.synth_staged_packed(synth.stage_epochs(eb, device),
+                                              n, fmt, plain=plain)]
+        pieces = [fetch_async(o) if o.device.type == "cuda" else (o, None)
+                  for o in outs]
         stats.plan_seconds += time.time() - t_plan
         if len(pending) >= _QUEUE_DEPTH:
             flush(pending.popleft())
-        pending.append((out, done, e1 - e))
+        pending.append((pieces, e1 - e))
         stats.device_batches += 1
         stats.total_samples += (e1 - e) * n
         log(f"\rTime into run = {(seg.first_epoch + e1 - 1) * 0.1:4.1f}")
@@ -161,8 +196,8 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
 
 def run_simulation(scn: Scenario, fp: BinaryIO, batch_epochs: int = 20,
                    log: Optional[Callable[[str], None]] = None,
-                   impl: str = "cuda", device="cuda") -> RunStats:
+                   impl: str = "cuda", device="cuda", mesh=None) -> RunStats:
     """Synthesize the whole scenario into `fp`. Returns throughput stats."""
     return run_epoch_range(scn, fp, 0, scn.n_output_epochs,
                            batch_epochs=batch_epochs, log=log, impl=impl,
-                           device=device)
+                           device=device, mesh=mesh)

@@ -16,10 +16,10 @@ import pathlib
 
 import numpy as np
 
-from gps_sdr_sim_tpu.constants import R2D
-from gps_sdr_sim_tpu.models.scenario import ScenarioConfig, build_scenario
-from gps_sdr_sim_tpu.utils.coord import llh2xyz
-from gps_sdr_sim_tpu.utils.gpstime import DateTime
+from gps_sdr_sim_tpu_torch.constants import R2D
+from gps_sdr_sim_tpu_torch.models.scenario import ScenarioConfig, build_scenario
+from gps_sdr_sim_tpu_torch.utils.coord import llh2xyz
+from gps_sdr_sim_tpu_torch.utils.gpstime import DateTime
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "data"

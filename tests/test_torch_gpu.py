@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernel against its plain PyTorch version.
+"""The hand-written CUDA kernel against its plain PyTorch version, and the
+sharded path on the card.
 
 Needs a CUDA device (a CUDA kernel has no CPU mode), so it skips here.
 This file imports no JAX, so on a machine without JAX it runs as
@@ -10,9 +11,16 @@ import io
 import pytest
 import torch
 
+from gps_sdr_sim_tpu_torch.models.scenario import ScenarioConfig, build_scenario
 from gps_sdr_sim_tpu_torch.ops import synth
+from gps_sdr_sim_tpu_torch.parallel.mesh import make_mesh
 from gps_sdr_sim_tpu_torch.runner import run_simulation
-from gps_sdr_sim_tpu_torch.testing import golden_scenario, random_wire
+from gps_sdr_sim_tpu_torch.testing import (
+    DATA,
+    NAV,
+    golden_scenario,
+    random_wire,
+)
 
 
 @pytest.mark.gpu
@@ -46,3 +54,46 @@ def test_runner_on_a_card_other_than_the_current_one():
         out[impl] = buf.getvalue()
     assert torch.cuda.current_device() == 0
     assert out["cuda"] == out["torch"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["planes", "raw"])
+def test_cuda_iq_modes_match_plain_versions(mode):
+    """The int16-plane and raw int32 modes, word for word, with gains up to
+    400 and t0 = -1 rows, at a width that ends mid sub-block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    fn = getattr(synth, f"synth_wire_{mode}")
+    ref = getattr(synth, f"synth_wire_{mode}_ref")
+    for seed in range(4):
+        wire, ca, n_chan = random_wire(seed, n_epochs=3, max_gain=400)
+        w, c = torch.from_numpy(wire).to(dev), torch.from_numpy(ca).to(dev)
+        before = synth.launch_counts[f"synth_wire_{mode}"]
+        got = fn(w, c, n_chan, 5000)
+        assert synth.launch_counts[f"synth_wire_{mode}"] == before + 1
+        want = ref(w, c, n_chan, 5000)
+        assert got[0].dtype == want[0].dtype
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cards", [1, 4])
+def test_sharded_2x2_matches_one_card(cards):
+    """A 2x2 mesh (raw kernel, chan reduction across cards when cards=4)
+    writes the bytes of the single-device kernel on one card."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    scn = build_scenario(ScenarioConfig(
+        nav_file=str(NAV), motion_file=str(DATA / "circle.csv"),
+        duration=2.0, samp_freq=2.6e6, data_format=16))
+    devs = [torch.device("cuda", i % cards) for i in range(4)]
+    out = {}
+    for impl, kw in (("cuda", dict(device="cuda:0")),
+                     ("cuda-sharded", dict(mesh=make_mesh(2, 2, devs)))):
+        buf = io.BytesIO()
+        run_simulation(scn, buf, batch_epochs=10, log=lambda s: None,
+                       impl=impl, **kw)
+        out[impl] = buf.getvalue()
+    assert len(out["cuda"]) == scn.n_output_epochs * scn.iq_buff_size * 4
+    assert out["cuda-sharded"] == out["cuda"]
