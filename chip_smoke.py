@@ -11,27 +11,45 @@ so the run shows that the port stands alone. Phases, each printing one line
 of findings (any failure raises and exits non-zero):
 
  1. environment: card name and power limit, CUDA, nvcc, triton;
- 2. build csrc/synth.cu with nvcc for sm_90a (timed as set-up), and count
-    each kernel mode's instructions per (sample, channel) in its SASS;
- 3. the kernel's three modes (packed words, int16 planes, raw int32 sums)
+ 2. build csrc/synth.cu and csrc/vpu_peak.cu with nvcc for sm_90a, the two
+    nvcc processes side by side (timed as set-up); count each synthesis
+    instantiation's instructions per (sample, channel) and each vpu_peak
+    case's instructions per round in the SASS;
+ 3. the synthesis kernel's three modes (packed words, int16 planes, raw
+    int32 sums), with the nav window walk and with the nav mask table,
     against their plain PyTorch versions on the card, word for word: four
     sample rates, the highalt16 and staticfix16 configurations, and seeded
-    random wires; the planes, interleaved, must be the SC16 words;
+    random wires; the planes, interleaved, must be the SC16 words; on the
+    six real configurations the mask table's words equal the walk's;
  4. the 11 C-reference IQ goldens through run_simulation(impl="cuda");
  5. the CLI end to end as a subprocess, checked against golden static16;
  6. the canonical workload (circle.csv, 300 s, 2.6 Msps, SC16/SC08/SC01)
     through run_simulation(impl="cuda"): (sum, nonzero) must equal
     tests/golden/bench_checksum.txt exactly; the median of three passes
     into a null sink gives the real-time factor;
- 7. kernel and plain-version times of each mode on one 100-epoch 2.6 Msps
-    batch, beside each mode's bound;
+ 6b. the same with GPS_SDR_SIM_NAV_GATHER=1 (the mask-table kernel) through
+    impl="cuda" (three formats) and impl="cuda-sharded" on the 1x1 and 2x2
+    meshes (SC16): the same checksums, and the real-time factors beside
+    the walk's;
+ 7. kernel and plain-version times of each mode, walk and mask table, on
+    one 100-epoch 2.6 Msps batch, beside each mode's bound; the two
+    variants of each mode are timed in turns by the A/B harness
+    (tools/ab_kernel.compare), which gives b_over_a;
  8. the canonical workload through run_simulation(impl="cuda-sharded") on a
     1x1 mesh (planes mode) and on a 2x2 mesh with every entry on this card
     (raw mode and the chan reduction): the same checksums; a null-sink
     median of three for SC16;
  9. shard files: 30 s of the canonical scenario as 4 shards, concatenated,
     equal the single-file run; a truncated shard is restored by resume;
-    two CLI processes joined by --multihost write the same bytes.
+    two CLI processes joined by --multihost write the same bytes;
+ 10. the int32 microbenchmark (tools/vpu_peak): kernel = plain version in
+    every timed run at its shape, the fold check, and the measured peak in
+    source ops/s and SASS instructions/s beside the published rate the
+    bounds use;
+ 11. --profile: one short run of the CLI's main() in this process writes a
+    torch.profiler trace that parses and holds synth_wire_kernel events;
+    the summed kernel time over the traced window is the kernels' busy
+    share of that window.
 
 The line before the last is the kernel report; the last line is
 {"ok": true, "device": {...}}.
@@ -42,6 +60,7 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import os
 import pathlib
 import re
 import socket
@@ -49,6 +68,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Installed before anything of the port is imported; given to every CLI
 # process this script starts.
@@ -66,12 +86,19 @@ CLI = IMPORT_HOOK + (
 
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_SOURCE = "gps_sdr_sim_tpu_torch/csrc/synth.cu"
-# Each mode's wrapper (the launch-count key) and the Pallas code it replaces.
+VPU_PEAK_SOURCE = "gps_sdr_sim_tpu_torch/csrc/vpu_peak.cu"
+# Each synthesis mode's wrapper (the launch-count key) and the Pallas code
+# it replaces; the _nav keys count the mask-table variant of each mode.
 KERNELS = {
     "synth_wire": "gps_sdr_sim_tpu/ops/synth_pallas.py:171",
     "synth_wire_planes": "gps_sdr_sim_tpu/ops/synth_pallas.py:497",
     "synth_wire_raw": "gps_sdr_sim_tpu/ops/synth_pallas.py:500",
+    "synth_wire_nav": "gps_sdr_sim_tpu/ops/synth_pallas.py:377",
+    "synth_wire_planes_nav": "gps_sdr_sim_tpu/ops/synth_pallas.py:565",
+    "synth_wire_raw_nav": "gps_sdr_sim_tpu/ops/synth_pallas.py:565",
 }
+VPU_PEAK_REPLACES = "tools/vpu_peak.py:58"
+NAV_SWITCH = "GPS_SDR_SIM_NAV_GATHER"
 RATES = (1.0e6, 1310720.0, 1331200.0, 2.6e6)
 FORMATS = (16, 8, 1)
 # NVIDIA H100 SXM at its 700 W limit (published peak rates): HBM3 rate, and one 32-bit instruction per lane per clock on every
@@ -84,19 +111,14 @@ def say(line: str) -> None:
     print(line, flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def phase_env(torch) -> str:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is False")
+    from gps_sdr_sim_tpu_torch.ops.synth_cuda import nvcc_path
+    from gps_sdr_sim_tpu_torch.tools.card import card_line
+
     card = card_line()
     say(card)
-    from gps_sdr_sim_tpu_torch.ops.synth_cuda import nvcc_path
 
     try:
         nvcc = subprocess.run(
@@ -115,59 +137,59 @@ def phase_env(torch) -> str:
     return card
 
 
-def sass_loop_instructions(sass: str) -> dict:
-    """Instructions in each kernel instantiation's channel loop, from the
-    text of `cuobjdump -sass`: the innermost loop (backward branch) whose
-    body holds an IMAD.HI, the multiply-high that the floor divisions by
-    1023 and 20 compile to. The loop is kept rolled (csrc/synth.cu), so its
+def sass_loop_instructions(loops: dict) -> dict:
+    """Instructions in each synthesis instantiation's channel loop, from
+    synth_cuda.sass_loops: the shortest loop whose body holds an IMAD.HI,
+    the multiply-high that the floor divisions by 1023 (and, in the walk,
+    by 20) compile to. The loop is kept rolled (csrc/synth.cu), so its
     length is what one (sample, channel) issues. Keys: synth_wire/16,
-    synth_wire/8, synth_wire/1, synth_wire_planes, synth_wire_raw."""
-    names = {("0", "16"): "synth_wire/16", ("0", "8"): "synth_wire/8",
+    synth_wire/8, synth_wire/1, synth_wire_planes, synth_wire_raw, and
+    the same with _nav for the mask-table variant."""
+    modes = {("0", "16"): "synth_wire/16", ("0", "8"): "synth_wire/8",
              ("0", "1"): "synth_wire/1", ("1", "0"): "synth_wire_planes",
              ("2", "0"): "synth_wire_raw"}
+    names = {}
+    for (mode, fmt), key in modes.items():
+        names[(mode, fmt, "0")] = key
+        base, _, f = key.partition("/")
+        names[(mode, fmt, "1")] = f"{base}_nav/{f}" if f else f"{key}_nav"
     counts = {}
-    for block in re.split(r"Function : ", sass)[1:]:
-        m = re.match(r"\S*synth_wire_kernelILi(\d)ELi(\d+)E", block)
+    for fn, found in loops.items():
+        m = re.match(r"\S*synth_wire_kernelILi(\d)ELi(\d+)ELb([01])E", fn)
         if not m:
             continue
-        ins = [(int(a, 16), op.split()) for a, op in re.findall(
-            r"/\*([0-9a-f]{4})\*/\s+([^;]*);", block)]
-        index = {a: i for i, (a, _) in enumerate(ins)}
-        best = None
-        for i, (a, op) in enumerate(ins):
-            opcode = op[1:] if op and op[0].startswith("@") else op
-            if not opcode or opcode[0] != "BRA" or len(opcode) < 2:
-                continue
-            target = int(opcode[1].strip("`()"), 16)
-            if target >= a or target not in index:
-                continue
-            body = [o for _, o in ins[index[target]:i + 1]]
-            ops = [o[1] if o[0].startswith("@") else o[0] for o in body]
-            if any(o.startswith("IMAD.HI") for o in ops):
-                n = sum(o != "NOP" for o in ops)
-                best = n if best is None else min(best, n)
-        if best is None:
-            raise AssertionError(f"no channel loop found in {block[:80]}")
-        counts[names[m.groups()]] = best
+        with_div = [len(loop) for loop in found
+                    if any(o.startswith("IMAD.HI") for o in loop)]
+        if not with_div:
+            raise AssertionError(f"no channel loop found in {fn}")
+        counts[names[m.groups()]] = min(with_div)
     if sorted(counts) != sorted(names.values()):
         raise AssertionError(f"SASS holds kernels {sorted(counts)}")
     return counts
 
 
 def phase_build() -> dict:
-    """Returns sass_loop_instructions of the built library."""
+    """Builds both sources side by side; returns the SASS counts:
+    sass_loop_instructions of the synthesis library and, under vpu_peak/
+    keys, each vpu_peak case's instructions per round."""
     from gps_sdr_sim_tpu_torch.ops import synth_cuda
+    from gps_sdr_sim_tpu_torch.tools import vpu_peak
 
     t = time.perf_counter()
-    lib = synth_cuda.build(verbose=True)
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda src: synth_cuda.build(src, verbose=True),
+                             (synth_cuda.SOURCE, synth_cuda.VPU_PEAK_SOURCE)))
     synth_cuda.load()
     built = time.perf_counter() - t
-    tool = pathlib.Path(synth_cuda.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    ops = sass_loop_instructions(sass)
-    say(f"phase 2 build: {lib.name} in {built:.2f} s; SASS channel-loop "
-        f"instructions per (sample, channel): {json.dumps(ops)}")
+    ops = sass_loop_instructions(synth_cuda.sass_loops(synth_cuda.sass(
+        libs[0])))
+    rounds = vpu_peak.round_instructions(synth_cuda.sass_loops(
+        synth_cuda.sass(libs[1])))
+    ops.update({f"vpu_peak/{k}": v for k, v in rounds.items()})
+    say(f"phase 2 build: {libs[0].name} and {libs[1].name} in {built:.2f} s "
+        f"(two nvcc side by side); SASS channel-loop instructions per "
+        f"(sample, channel), and vpu_peak instructions per round: "
+        f"{json.dumps(ops)}")
     return ops
 
 
@@ -195,23 +217,27 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
                                      f"max |diff| {err}")
         calls[name] += 1
 
-    def compare(wire, ca, n_chan, n_out, label):
+    def compare(wire, ca, n_chan, n_out, label, nav):
+        """Every mode of one variant against its plain version; returns
+        the outputs (SC16/SC08/SC01 words, planes, raw)."""
+        sfx = "_nav" if nav else ""
+        outs = []
         for fmt in FORMATS:
-            got = synth.synth_wire(wire, ca, n_chan, n_out, fmt)
-            check("synth_wire", [got],
-                  [synth.synth_wire_ref(wire, ca, n_chan, n_out, fmt)],
-                  f"{label} fmt {fmt}")
-            if fmt == 16:
-                sc16 = got
-        planes = synth.synth_wire_planes(wire, ca, n_chan, n_out)
-        check("synth_wire_planes", planes,
-              synth.synth_wire_planes_ref(wire, ca, n_chan, n_out), label)
-        check("synth_wire_raw", synth.synth_wire_raw(wire, ca, n_chan, n_out),
-              synth.synth_wire_raw_ref(wire, ca, n_chan, n_out), label)
+            got = synth.synth_wire(wire, ca, n_chan, n_out, fmt, nav)
+            check(f"synth_wire{sfx}", [got], [synth.synth_wire_ref(
+                wire, ca, n_chan, n_out, fmt, nav)], f"{label} fmt {fmt}")
+            outs.append((got,))
+        planes = synth.synth_wire_planes(wire, ca, n_chan, n_out, nav)
+        check(f"synth_wire_planes{sfx}", planes, synth.synth_wire_planes_ref(
+            wire, ca, n_chan, n_out, nav), label)
+        raw = synth.synth_wire_raw(wire, ca, n_chan, n_out, nav)
+        check(f"synth_wire_raw{sfx}", raw,
+              synth.synth_wire_raw_ref(wire, ca, n_chan, n_out, nav), label)
         torch.cuda.synchronize()
         if not torch.equal(torch.stack(planes, dim=-1).reshape(
-                wire.shape[0], -1), sc16.view(torch.int16)):
+                wire.shape[0], -1), outs[0][0].view(torch.int16)):
             raise AssertionError(f"planes interleaved != SC16 words: {label}")
+        return outs + [planes, raw]
 
     configs = [(f"static {r / 1e6:g} Msps", r, dict(static_xyz=TOKYO))
                for r in RATES]
@@ -225,20 +251,27 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
         staged = synth.stage_epochs(
             plan_epochs(seg, 0, min(seg.n_epochs, scn.n_output_epochs),
                         scn.delt), dev)
-        compare(*staged, scn.iq_buff_size, label)
+        walk = compare(*staged, scn.iq_buff_size, label, nav=False)
+        gather = compare(*staged, scn.iq_buff_size, label, nav=True)
+        for w, g in zip(walk, gather):
+            if not all(torch.equal(a, b) for a, b in zip(w, g)):
+                raise AssertionError(f"mask table != window walk on the "
+                                     f"real plan {label}")
     for seed in range(8):
         wire, ca, n_chan = random_wire(seed, n_epochs=3, max_gain=400)
-        compare(torch.from_numpy(wire).to(dev), torch.from_numpy(ca).to(dev),
-                n_chan, 5000, f"random seed {seed}")
+        wire, ca = torch.from_numpy(wire).to(dev), torch.from_numpy(ca).to(dev)
+        for nav in (False, True):
+            compare(wire, ca, n_chan, 5000, f"random seed {seed}", nav)
     for k in KERNELS:
         launched = synth.launch_counts[k] - before[k]
         if launched != calls[k]:
             raise AssertionError(f"{k}: {calls[k]} calls, {launched} "
                                  f"launches")
     say(f"phase 3 kernel vs plain: equal in every case (6 configs + 8 "
-        f"random wires; packed x 3 formats, planes, raw): cases "
-        f"{json.dumps(calls)}, max |diff| {json.dumps(worst)}; planes "
-        f"interleaved = SC16 words in all 14")
+        f"random wires; packed x 3 formats, planes, raw; window walk and "
+        f"mask table): cases {json.dumps(calls)}, max |diff| "
+        f"{json.dumps(worst)}; planes interleaved = SC16 words in all 28; "
+        f"mask-table words = walk words on the 6 real configs")
     return worst
 
 
@@ -325,11 +358,13 @@ def golden_checksums() -> dict:
 
 
 def canonical_runs(torch, scns: dict, label: str, timed_formats,
+                   formats=FORMATS, on_mismatch=None,
                    **run_kw) -> tuple[dict, dict]:
-    """The canonical workload in every format through run_simulation(
+    """The canonical workload in `formats` through run_simulation(
     **run_kw), with every launch count set to 0 just before and read just
     after; then null-sink passes of `timed_formats`. Returns (launch
-    counts, real-time factor by timed format)."""
+    counts, real-time factor by timed format). A checksum that differs from
+    the golden raises, after on_mismatch(fmt) where given."""
     from gps_sdr_sim_tpu_torch.ops import synth
     from gps_sdr_sim_tpu_torch.ops.quantize import wrap_int32
     from gps_sdr_sim_tpu_torch.runner import run_simulation
@@ -344,17 +379,19 @@ def canonical_runs(torch, scns: dict, label: str, timed_formats,
     for k in synth.launch_counts:
         synth.launch_counts[k] = 0
     sinks, stats = {}, {}
-    for fmt in FORMATS:
+    for fmt in formats:
         sinks[fmt] = ChecksumSink(fmt)
         stats[fmt] = run_simulation(scns[fmt], sinks[fmt], batch_epochs=100,
                                     log=quiet, **run_kw)
     launches = dict(synth.launch_counts)
 
     rt = {}
-    for fmt in FORMATS:
+    for fmt in formats:
         scn, sink, st = scns[fmt], sinks[fmt], stats[fmt]
         got = (wrap_int32(sink.sum), sink.nonzero)
         if got != goldens[fmt]:
+            if on_mismatch is not None:
+                on_mismatch(fmt)
             raise AssertionError(f"{label} SC{fmt:02d} checksum {got} != "
                                  f"golden {goldens[fmt]}")
         line = (f"{label} SC{fmt:02d}: checksum (sum mod 2^32, nonzero) = "
@@ -380,19 +417,6 @@ def canonical_runs(torch, scns: dict, label: str, timed_formats,
     return launches, rt
 
 
-def _time_cuda(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound_ms(in_bytes: int, out_bytes: int, instructions: int,
              samples: int, channels: int) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes moved
@@ -405,59 +429,78 @@ def bound_ms(in_bytes: int, out_bytes: int, instructions: int,
                                  else "operations")
 
 
-def phase_timing(torch, dev, sass_ops: dict) -> dict:
-    """Kernel and plain-version ms of every mode on one 100-epoch 2.6 Msps
-    batch, at the widths the main path gives each: the packed words over
-    the active channels, the planes over all 16 wire channels (a 1x1
-    mesh), the raw sums over one chan shard of 8 (a 2x2 mesh). Returns
-    {report key: (ms, plain ms, bound ms, bound by)}."""
+def phase_timing(torch, dev, sass_ops: dict) -> tuple[dict, dict]:
+    """Kernel and plain-version ms of every mode, window walk and mask
+    table, on one 100-epoch 2.6 Msps batch, at the widths the main path
+    gives each: the packed words over the active channels, the planes over
+    all 16 wire channels (a 1x1 mesh), the raw sums over one chan shard of
+    8 (a 2x2 mesh). The two variants of a mode are timed in turns by the
+    A/B harness (tools/ab_kernel.compare), which first checks that they
+    write the same words. Returns ({report key: (ms, plain ms, bound ms,
+    bound by)}, {walk key: mask table / window walk})."""
     from gps_sdr_sim_tpu_torch.ops import synth
     from gps_sdr_sim_tpu_torch.ops.plan import plan_epochs
+    from gps_sdr_sim_tpu_torch.tools import ab_kernel
+    from gps_sdr_sim_tpu_torch.tools.card import time_ms
 
     scn = canonical_scenario(16)
     staged = synth.stage_epochs(
         plan_epochs(scn.segments[0], 0, 100, scn.delt), dev)
     n = scn.iq_buff_size
     wire, ca = staged.wire, staged.ca_words
-    cases = [(f"synth_wire/{fmt}", wire, ca, staged.n_chan,
-              lambda w, c, k, f=fmt: synth.synth_wire(w, c, k, n, f),
-              lambda w, c, k, f=fmt: synth.synth_wire_ref(w, c, k, n, f))
-             for fmt in FORMATS]
-    cases.append(("synth_wire_planes", wire, ca, wire.shape[1],
-                  lambda w, c, k: synth.synth_wire_planes(w, c, k, n),
-                  lambda w, c, k: synth.synth_wire_planes_ref(w, c, k, n)))
     half = wire[:, :8].contiguous(), ca[:8].contiguous()
-    cases.append(("synth_wire_raw", *half, 8,
-                  lambda w, c, k: synth.synth_wire_raw(w, c, k, n),
-                  lambda w, c, k: synth.synth_wire_raw_ref(w, c, k, n)))
-    times = {}
-    for key, w, c, k, kernel, plain in cases:
-        got, want = kernel(w, c, k), plain(w, c, k)
-        got, want = (got,) if torch.is_tensor(got) else got, \
-            (want,) if torch.is_tensor(want) else want
-        if not all(torch.equal(g, p) for g, p in zip(got, want)):
-            raise AssertionError(f"{key} != plain version on the 100-epoch "
-                                 f"batch")
-        out_bytes = sum(g.numel() * g.element_size() for g in got)
-        del got, want
-        # Alternate kernel / plain / plain / kernel within one call.
-        k1 = _time_cuda(torch, lambda: kernel(w, c, k), 20)
-        p1 = _time_cuda(torch, lambda: plain(w, c, k), 3)
-        p2 = _time_cuda(torch, lambda: plain(w, c, k), 3)
-        k2 = _time_cuda(torch, lambda: kernel(w, c, k), 20)
+    modes = [(f"synth_wire/{fmt}", wire, ca, staged.n_chan,
+              lambda w, c, k, g, f=fmt: synth.synth_wire(w, c, k, n, f, g),
+              lambda w, c, k, g, f=fmt: synth.synth_wire_ref(
+                  w, c, k, n, f, g)) for fmt in FORMATS]
+    modes.append((
+        "synth_wire_planes", wire, ca, wire.shape[1],
+        lambda w, c, k, g: synth.synth_wire_planes(w, c, k, n, g),
+        lambda w, c, k, g: synth.synth_wire_planes_ref(w, c, k, n, g)))
+    modes.append((
+        "synth_wire_raw", *half, 8,
+        lambda w, c, k, g: synth.synth_wire_raw(w, c, k, n, g),
+        lambda w, c, k, g: synth.synth_wire_raw_ref(w, c, k, n, g)))
+    times, ratios = {}, {}
+    for key, w, c, k, kernel, plain in modes:
+        ab = ab_kernel.compare(
+            {"walk": lambda: kernel(w, c, k, False),
+             "mask table": lambda: kernel(w, c, k, True)},
+            passes=5, reps=4, device=dev)
+        if not ab["bit_equal"]:
+            raise AssertionError(f"{key}: mask table != window walk on the "
+                                 f"100-epoch batch")
+        ratios[key] = ab["b_over_a"]
         # The data needs the channels whose gain is not 0.
         active = int((w[:, :k, 11] != 0).any(dim=0).sum())
         in_bytes = w.numel() * 4 + c.numel() * 4 + 2 * 512 * 4
-        bound, by = bound_ms(in_bytes, out_bytes, sass_ops[key],
-                             w.shape[0] * n, active)
-        times[key] = (min(k1, k2), min(p1, p2), bound, by)
-        say(f"phase 7 timing {key}: {w.shape[0]} epochs x {n} samples x "
-            f"{k} channels ({active} with gain): kernel {k1:.3f}/{k2:.3f} "
-            f"ms ({w.shape[0] * n / min(k1, k2) / 1e6:.3f} Gsamples/s), "
-            f"plain {p1:.3f}/{p2:.3f} ms, bound {bound:.3f} ms by {by} "
-            f"({sass_ops[key]} instructions per (sample, channel), "
-            f"{out_bytes} bytes out), kernel = plain bit for bit")
-    return times
+        for g, label in ((False, "walk"), (True, "mask table")):
+            name = nav_key(key) if g else key
+            got, want = kernel(w, c, k, g), plain(w, c, k, g)
+            got, want = (got,) if torch.is_tensor(got) else got, \
+                (want,) if torch.is_tensor(want) else want
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} != plain version on the "
+                                     f"100-epoch batch")
+            out_bytes = sum(a.numel() * a.element_size() for a in got)
+            del got, want
+            ms = ab["best_s"][label] * 1e3
+            plain_ms = time_ms(lambda: plain(w, c, k, g), 2, dev, warm=False)
+            bound, by = bound_ms(in_bytes, out_bytes, sass_ops[name],
+                                 w.shape[0] * n, active)
+            times[name] = (ms, plain_ms, bound, by)
+            say(f"phase 7 timing {name}: {w.shape[0]} epochs x {n} samples "
+                f"x {k} channels ({active} with gain): kernel {ms:.4f} ms "
+                f"({w.shape[0] * n / ms / 1e6:.3f} Gsamples/s; the A/B's "
+                f"reps {'/'.join(f'{t * 1e3:.4f}' for t in ab['reps_s'][label])}"
+                f" ms), plain {plain_ms:.3f} ms, "
+                f"bound {bound:.3f} ms by {by} ({sass_ops[name]} "
+                f"instructions per (sample, channel), {out_bytes} bytes "
+                f"out), kernel = plain bit for bit")
+    say("phase 7 A/B (tools/ab_kernel.compare, 4 reps x 5 passes, walk and "
+        "mask table bit-equal), b_over_a = mask table / window walk: "
+        + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items()))
+    return times, ratios
 
 
 def phase_shard_files(torch, dev, duration: float = 30.0) -> None:
@@ -533,6 +576,158 @@ def phase_shard_files(torch, dev, duration: float = 30.0) -> None:
             f"({time.perf_counter() - t:.2f} s)")
 
 
+def nav_key(key: str) -> str:
+    """The mask-table variant's key of a walk key (synth_wire/16 ->
+    synth_wire_nav/16, synth_wire_raw -> synth_wire_raw_nav)."""
+    base, sep, fmt = key.partition("/")
+    return f"{base}_nav{sep}{fmt}"
+
+
+def locate_nav_difference(torch, scn, dev) -> None:
+    """Where the mask-table kernel's stream leaves the window walk's: the
+    first differing epoch and byte offset of the file, and whether the mask
+    table's plain version writes the kernel's words there."""
+    from gps_sdr_sim_tpu_torch.ops import synth
+    from gps_sdr_sim_tpu_torch.ops.plan import plan_epochs
+    from gps_sdr_sim_tpu_torch.ops.quantize import words_to_bytes
+
+    fmt, n = scn.config.data_format, scn.iq_buff_size
+    per_epoch = synth.packed_bytes(n, fmt)
+    for seg in scn.segments:
+        for e in range(0, seg.n_epochs, 100):
+            st = synth.stage_epochs(plan_epochs(
+                seg, e, min(e + 100, seg.n_epochs), scn.delt), dev)
+            walk, gather = (synth.synth_wire(*st, n, fmt, g)
+                            for g in (False, True))
+            a, b = (words_to_bytes(x.cpu().numpy(), n, fmt).reshape(-1)
+                    for x in (walk, gather))
+            if (a != b).any():
+                i = int((a != b).nonzero()[0][0])
+                plain = synth.synth_wire_ref(*st, n, fmt, True)
+                epoch = seg.first_epoch - 1 + e + i // per_epoch
+                same = bool(torch.equal(plain, gather))
+                say(f"phase 6b SC{fmt:02d}: mask table != window walk from "
+                    f"output epoch {epoch}, file byte "
+                    f"{(epoch * per_epoch) + i % per_epoch}; mask-table plain "
+                    f"version = kernel there: {same}")
+                return
+    say(f"phase 6b SC{fmt:02d}: no differing epoch found")
+
+
+def phase_nav_canonical(torch, scns: dict, dev, meshes) -> tuple:
+    """Phase 6b: the canonical workload with the nav switch on, through the
+    packed path (3 formats) and the sharded path on each mesh (SC16).
+    Returns (packed launches, packed RT by format, {mesh: (launches,
+    RT)})."""
+    def locate(fmt):
+        locate_nav_difference(torch, scns[fmt], dev)
+
+    os.environ[NAV_SWITCH] = "1"
+    try:
+        launches, rt = canonical_runs(
+            torch, scns, "phase 6b canonical, mask table", (16,),
+            on_mismatch=locate, impl="cuda", device=dev)
+        sharded = {label: canonical_runs(
+            torch, scns, f"phase 6b cuda-sharded {label}, mask table", (16,),
+            formats=(16,), on_mismatch=locate, impl="cuda-sharded",
+            mesh=mesh) for label, mesh in meshes}
+    finally:
+        del os.environ[NAV_SWITCH]
+    for got, walk_key in ((launches, "synth_wire"),
+                          (sharded["1x1"][0], "synth_wire_planes"),
+                          (sharded["2x2"][0], "synth_wire_raw")):
+        if got[walk_key] != 0 or got[nav_key(walk_key)] == 0:
+            raise AssertionError(f"with {NAV_SWITCH}=1 the path launched "
+                                 f"{json.dumps(got)}")
+    return launches, rt, sharded
+
+
+def phase_vpu_peak(sass_ops: dict) -> dict:
+    """Phase 10: tools/vpu_peak. Returns its kernel report fields."""
+    from gps_sdr_sim_tpu_torch.tools import vpu_peak
+
+    tiles, rounds = 2048, 512
+    vpu_peak.launch_counts["vpu_peak"] = 0
+    res = vpu_peak.measure("cuda", tiles=tiles, rounds=rounds, reps=3)
+    launches = vpu_peak.launch_counts["vpu_peak"]
+    alu = next(c for c in res["cases"] if c["name"] == "alu")
+    elems = tiles * vpu_peak.SLAB * vpu_peak.LANES
+    in_bytes = (vpu_peak.SLAB + 1) * vpu_peak.LANES * 4
+    bound, by = bound_ms(in_bytes, elems * 4, sass_ops["vpu_peak/alu"],
+                         elems * rounds, 1)
+    for c in res["cases"]:
+        say(f"phase 10 vpu_peak {c['name']}: {c['ms']:.4f} ms (plain "
+            f"{c['plain_ms']:.3f} ms, equal word for word), "
+            f"{c['source_ops_per_s'] / 1e12:.3f} T source ops/s, "
+            f"{c['sass_per_s'] / 1e12:.3f} T SASS instructions/s "
+            f"({c['sass_per_round']} per round, {c['rounds']} rounds x "
+            f"{c['tiles']} tiles)")
+    fold = res["fold_check"]
+    say(f"phase 10 vpu_peak: kernel = plain version in every run at its "
+        f"shape (max |diff| {res['max_abs_err']}); fold check passed (alu "
+        f"{fold['alu_ms']:.4f} ms >= 1.5 x alu/4 {fold['alu4_ms']:.4f} ms); "
+        f"two-point peak {res['peak_source_ops_per_s'] / 1e12:.3f} T source "
+        f"ops/s = {res['peak_sass_per_s'] / 1e12:.3f} T SASS "
+        f"instructions/s, published issue rate {ISSUE_PER_S / 1e12:.1f} T/s "
+        f"({res['peak_sass_per_s'] / ISSUE_PER_S:.3f} of it); one gather "
+        f"~{res['gather_cost_alu_ops']:.2f} alu ops, one imul "
+        f"~{res['imul_cost_alu_ops']:.2f}, one f32 round trip "
+        f"~{res['f32_roundtrip_cost_alu_ops']:.2f}; alu kernel "
+        f"{alu['ms']:.4f} ms, plain {alu['plain_ms']:.3f} ms, bound "
+        f"{bound:.4f} ms by {by}; {res['card']}")
+    return {"launches": launches, "max_abs_err": res["max_abs_err"],
+            "ms": alu["ms"], "plain_ms": alu["plain_ms"], "bound_ms": bound,
+            "bound_by": by}
+
+
+def phase_profile(dev) -> None:
+    """Phase 11: one short run of the CLI's main() with --profile on the
+    card, in this process."""
+    import contextlib
+
+    from gps_sdr_sim_tpu_torch.cli import main as cli_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = pathlib.Path(tmp) / "prof"
+        err = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main([
+                "-e", str(ROOT / "data" / "brdc3540.14n"), "-u",
+                str(ROOT / "data" / "circle.csv"), "-d", "30", "-s",
+                "2600000", "--batch-epochs", "100", "--device", str(dev),
+                "--profile", str(prof), "-o", os.devnull])
+        if rc != 0:
+            raise AssertionError(f"--profile run exited {rc}:\n"
+                                 f"{err.getvalue()[-4000:]}")
+        last = err.getvalue().strip().splitlines()[-1]
+        if last != f"profiler trace written to {prof}":
+            raise AssertionError(f"--profile stderr ends {last!r}")
+        traces = list(prof.glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"--profile wrote {traces}")
+        events = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+                  if e.get("ph") == "X"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        synth = [e for e in kernels if "synth_wire_kernel" in e["name"]]
+        if not synth:
+            raise AssertionError(f"the trace holds no synth_wire_kernel "
+                                 f"event ({len(kernels)} kernel events)")
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+        start = min(e["ts"] for e in events)
+        window = max(e["ts"] + e["dur"] for e in events) - start
+        busy = sum(e["dur"] for e in kernels)
+        say(f"phase 11 --profile: 30 s of the canonical scenario (SC16, "
+            f"batches of 100 epochs, {time.perf_counter() - t:.2f} s); trace "
+            f"{traces[0].name} parses, {len(events)} events, "
+            f"{len(synth)} synth_wire_kernel events "
+            f"({sum(e['dur'] for e in synth) / 1e3:.3f} ms), "
+            f"{len(kernels)} kernel events ({busy / 1e3:.3f} ms), "
+            f"{len(copies)} copies ({sum(e['dur'] for e in copies) / 1e3:.3f} "
+            f"ms) in a traced window of {window / 1e3:.3f} ms: kernel busy "
+            f"share of the traced window {busy / window:.4f}")
+
+
 def main() -> int:
     if not (ROOT / KERNEL_SOURCE).is_file():
         print(f"FAIL: {KERNEL_SOURCE} not found beside chip_smoke.py; run "
@@ -551,42 +746,65 @@ def main() -> int:
     scns = {fmt: canonical_scenario(fmt) for fmt in FORMATS}
     launches, rt = canonical_runs(torch, scns, "phase 6 canonical", FORMATS,
                                   impl="cuda", device=dev)
-    times = phase_timing(torch, dev, sass_ops)
     from gps_sdr_sim_tpu_torch.parallel import make_mesh
 
+    meshes = (("1x1", make_mesh(1, 1, [dev])),
+              ("2x2", make_mesh(2, 2, [dev] * 4)))
+    nav_launches, nav_rt, nav_sharded = phase_nav_canonical(
+        torch, scns, dev, meshes)
+    times, ratios = phase_timing(torch, dev, sass_ops)
     sharded = {}
-    for label, mesh in (("1x1", make_mesh(1, 1, [dev])),
-                        ("2x2", make_mesh(2, 2, [dev] * 4))):
+    for label, mesh in meshes:
         sharded[label] = canonical_runs(
             torch, scns, f"phase 8 cuda-sharded {label}", (16,),
             impl="cuda-sharded", mesh=mesh)
     phase_shard_files(torch, dev)
+    vpu = phase_vpu_peak(sass_ops)
+    phase_profile(dev)
 
     # Each kernel's launches on the path that runs it.
     paths = {"synth_wire": launches["synth_wire"],
              "synth_wire_planes": sharded["1x1"][0]["synth_wire_planes"],
-             "synth_wire_raw": sharded["2x2"][0]["synth_wire_raw"]}
+             "synth_wire_raw": sharded["2x2"][0]["synth_wire_raw"],
+             "synth_wire_nav": nav_launches["synth_wire_nav"],
+             "synth_wire_planes_nav":
+                 nav_sharded["1x1"][0]["synth_wire_planes_nav"],
+             "synth_wire_raw_nav":
+                 nav_sharded["2x2"][0]["synth_wire_raw_nav"],
+             "vpu_peak": vpu["launches"]}
     for name, count in paths.items():
         if count == 0:
             raise AssertionError(f"the main path launched no {name}")
     say(f"summary: real-time factor " + ", ".join(
         f"SC{f:02d} {rt[f]:.1f}x" for f in FORMATS) + "; cuda-sharded SC16 "
         + ", ".join(f"{label} {r[1][16]:.1f}x" for label, r in
-                    sharded.items()) + f" on {card}")
+                    sharded.items())
+        + f"; with the mask table SC16 {nav_rt[16]:.1f}x, cuda-sharded SC16 "
+        + ", ".join(f"{label} {r[1][16]:.1f}x" for label, r in
+                    nav_sharded.items())
+        + "; A/B b_over_a (mask table / walk) " + ", ".join(
+            f"{k} {r:.4f}" for k, r in ratios.items()) + f" on {card}")
     say(card)
     report = []
     for name, replaces in KERNELS.items():
-        key = "synth_wire/16" if name == "synth_wire" else name
+        packed = name in ("synth_wire", "synth_wire_nav")
+        key = f"{name}/16" if packed else name
         ms, plain_ms, bound, by = times[key]
         row = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                "replaces": replaces, "launches": paths[name],
                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound, "bound_by": by, "library_ms": None}
-        if name == "synth_wire":
+        if packed:
             for field, i in (("ms", 0), ("plain_ms", 1), ("bound_ms", 2)):
                 row[f"{field}_by_format"] = {
-                    str(f): times[f"synth_wire/{f}"][i] for f in FORMATS}
+                    str(f): times[f"{name}/{f}"][i] for f in FORMATS}
         report.append(row)
+    report.append({"name": "vpu_peak", "route": "cuda",
+                   "source": VPU_PEAK_SOURCE, "replaces": VPU_PEAK_REPLACES,
+                   "launches": vpu["launches"],
+                   "max_abs_err": vpu["max_abs_err"], "ms": vpu["ms"],
+                   "plain_ms": vpu["plain_ms"], "bound_ms": vpu["bound_ms"],
+                   "bound_by": vpu["bound_by"], "library_ms": None})
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

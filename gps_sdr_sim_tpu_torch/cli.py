@@ -7,12 +7,15 @@ on any device (--impl torch), or either sharded over every local device of
 --device's type (--impl cuda-sharded / torch-sharded). --shard-dir writes
 time-shard files and a manifest (with --shards, --resume and --concat), and
 --multihost joins a torch.distributed (gloo) group whose processes write
-disjoint shards. --profile is not ported yet and is refused.
+disjoint shards. --profile DIR writes a torch.profiler trace of the run (CPU
+activity, and the card's kernels when --device is a CUDA device) into DIR
+as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -89,7 +92,8 @@ def _usage():
         "  --resume            Skip shards already complete in --shard-dir\n"
         "  --concat            After sharding, assemble -o from the shards\n"
         "  --multihost <spec>  coord_addr:port,process_id,num_processes --\n"
-        "                      join a torch.distributed (gloo) group\n",
+        "                      join a torch.distributed (gloo) group\n"
+        "  --profile <dir>     Write a torch.profiler trace of the run\n",
         file=sys.stderr)
 
 
@@ -174,8 +178,7 @@ def parse_args(argv):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--concat", action="store_true")
     ap.add_argument("--multihost", default="", metavar="COORD:PORT,ID,N")
-    # Accepted only to be refused by name (see main).
-    ap.add_argument("--profile", default="")
+    ap.add_argument("--profile", default="", metavar="DIR")
     try:
         ns, extras = ap.parse_known_args(argv)
     except SystemExit:
@@ -309,8 +312,6 @@ def main(argv=None) -> int:
         return 1
     ns = parse_args(argv)
     phases = {"main_start_unix": time.time()}
-    if ns.profile:
-        _err("--profile is not yet supported by the torch port.")
     if not ns.multihost:
         return _main(ns, phases)
     try:
@@ -376,6 +377,26 @@ def _main(ns, phases) -> int:
             print(f"{prn:02d} {az:6.1f} {el:5.1f} {d:11.1f} {iono:5.1f}",
                   file=sys.stderr)
 
+    if not ns.profile:
+        return _run_either(ns, cfg, scn, fp, close_fp, device, phases)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        return _run_either(ns, cfg, scn, fp, close_fp, device, phases)
+    finally:
+        prof.stop()
+        os.makedirs(ns.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            ns.profile, f"gps-sdr-sim-torch.{os.getpid()}.pt.trace.json"))
+        print(f"profiler trace written to {ns.profile}", file=sys.stderr)
+
+
+def _run_either(ns, cfg, scn, fp, close_fp, device, phases) -> int:
     if ns.shard_dir:
         return _run_sharded(ns, cfg, scn, device, phases)
     return _run(ns, scn, fp, close_fp, device, phases)

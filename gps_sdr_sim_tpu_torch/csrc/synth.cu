@@ -16,6 +16,24 @@
 //     rounding shift (`quantize=False`; a chan shard's partial sums, which
 //     the caller adds across the chan axis before quantizing, shard.py:170).
 //
+// The nav sign (the template value NAV), in every mode:
+//   * NAV = false, the window walk: bit floor((m0r + M) / 20) of the nav
+//     window, a floor division and a sign-filling shift per (sample,
+//     channel);
+//   * NAV = true, the mask table: the K1 `tpe > 0` variant
+//     (synth_pallas.py:377-393 body, :565-575 operand, nav_masks and
+//     nav_table_from_wire :706-733). Lane m of a channel's 128-entry table
+//     is bit clip(floor((m0 + m) / 20) - b0, 0, 31) of the window, and code
+//     period M reads lane M & 127 (M = -1 reads lane 127, as the TPU kernel
+//     does; the walk's sign fill reads the window's bit 31 there instead).
+//     The TPU kernel takes the table as a [B*C, 128] int32 operand with a
+//     block per epoch; here the block prologue builds it from the wire, as
+//     4 x 32 bits per channel in shared memory, so nothing extra goes
+//     through device memory. The lookup is one shared load and two shifts
+//     in place of the walk's division by 20 (a multiply-high and fix-ups),
+//     shift, compare and select; M is nearly uniform across a warp, so the
+//     load is a broadcast.
+//
 // Arithmetic contract (identical to ops/plan.py and synth_pallas.py, so the
 // output words are bit-identical):
 //   * phases and steps are 2^56-scaled unsigned integers taken from the
@@ -33,17 +51,18 @@
 //     the int16 wrap precedes SC08's >> 4 and SC01's sign test.
 //
 // What bounds it on an H100: integer ALU issue rate. Each (sample, channel)
-// costs two 64-bit multiply-adds, two floor divisions, two shared-memory
-// lookups (C/A word, sin/cos) and ~20 other integer ops; the channel loop
-// is kept rolled so that its instruction count is the per-(sample, channel)
-// cost (chip_smoke.py reads it from cuobjdump -sass). SC16 writes 4 bytes
-// per sample, kRaw 8 (3.1 and 6.2 GB for the 300 s canonical run), which at
-// HBM rates is far below the ALU time. This first design is the simple
-// one: one block per (sub-block, epoch), 128 threads, each thread writing
-// whole 32-bit output words, the 512-entry sin/cos table, the C/A words
-// and the rebased channel parameters held in shared memory. It recomputes
-// the ramps with multiplies instead of stepping them, and it does not
-// specialise on the rate or the gain. Those are later work.
+// costs two 64-bit multiply-adds, one or two floor divisions, two or three
+// shared-memory lookups (C/A word, sin/cos, the nav table) and ~20 other
+// integer ops; the channel loop is kept rolled so that its instruction
+// count is the per-(sample, channel) cost (chip_smoke.py reads it from
+// cuobjdump -sass). SC16 writes 4 bytes per sample, kRaw 8 (3.1 and 6.2 GB
+// for the 300 s canonical run), which at HBM rates is far below the ALU
+// time. This first design is the simple one: one block per (sub-block,
+// epoch), 128 threads, each thread writing whole 32-bit output words, the
+// 512-entry sin/cos table, the C/A words, the nav tables and the rebased
+// channel parameters held in shared memory. It recomputes the ramps with
+// multiplies instead of stepping them, and it does not specialise on the
+// rate or the gain. Those are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,11 +103,30 @@ __device__ __forceinline__ uint64_t wire_u64(const int32_t* w, int lane) {
   return uint64_t(uint32_t(w[lane])) | (uint64_t(uint32_t(w[lane + 1])) << 32);
 }
 
+// Word k (lanes 32k .. 32k+31) of a channel's nav mask table: bit m is the
+// nav bit of code period m0 + 32k + m, window bit
+// clip(floor((m0 + 32k + m) / 20) - b0, 0, 31). m0 >= 0 (16 bits), so the
+// division needs no floor fix-up.
+__device__ __forceinline__ uint32_t nav_table_word(const int32_t* w, int k) {
+  const int32_t m0 = w[9] & 0xFFFF, b0 = w[9] >> 16, navbits = w[10];
+  uint32_t word = 0;
+#pragma unroll
+  for (int m = 0; m < 32; ++m) {
+    int j = (m0 + 32 * k + m) / 20 - b0;
+    j = j < 0 ? 0 : (j > 31 ? 31 : j);
+    word |= uint32_t((navbits >> j) & 1) << m;
+  }
+  return word;
+}
+
 // Channel sums (I, Q) of in-sub-block sample r over the first n_chan
-// channels, wrapped mod 2^32 like int32.
+// channels, wrapped mod 2^32 like int32. nav: the channels' mask tables
+// (4 words each; read only when NAV).
+template <bool NAV>
 __device__ __forceinline__ void accumulate_iq(int r, int n_chan,
                                               const Chan* ch,
                                               const uint32_t* ca,
+                                              const uint32_t* nav,
                                               const int32_t* sin_t,
                                               const int32_t* cos_t,
                                               uint32_t* i_acc,
@@ -102,8 +140,14 @@ __device__ __forceinline__ void accumulate_iq(int r, int n_chan,
     int M = floor_div(T, kCaLen);
     int chip = T - kCaLen * M;
     int ca_bit = (ca[c * 32 + (chip >> 5)] >> (chip & 31)) & 1;
-    int j = floor_div(p.m0r + M, 20);
-    int nav_bit = shr_signfill(p.navbits, j) & 1;
+    int nav_bit;
+    if constexpr (NAV) {
+      const uint32_t lane = uint32_t(M) & 127u;
+      nav_bit = int(nav[c * 4 + (lane >> 5)] >> (lane & 31u)) & 1;
+    } else {
+      int j = floor_div(p.m0r + M, 20);
+      nav_bit = shr_signfill(p.navbits, j) & 1;
+    }
     uint64_t carr = p.carr_base + uint64_t(r) * p.carr_step;
     int idx = int(carr >> 31) & 0x1FF;
     uint32_t neg = 0u - uint32_t(ca_bit ^ nav_bit);  // 0 or all ones
@@ -122,13 +166,15 @@ __device__ __forceinline__ int32_t quantize(uint32_t acc) {
 }
 
 // Quantized (I, Q) of in-sub-block sample r, before the int16 wrap.
+template <bool NAV>
 __device__ __forceinline__ void sample_iq(int r, int n_chan, const Chan* ch,
                                           const uint32_t* ca,
+                                          const uint32_t* nav,
                                           const int32_t* sin_t,
                                           const int32_t* cos_t, int32_t* i_out,
                                           int32_t* q_out) {
   uint32_t iacc, qacc;
-  accumulate_iq(r, n_chan, ch, ca, sin_t, cos_t, &iacc, &qacc);
+  accumulate_iq<NAV>(r, n_chan, ch, ca, nav, sin_t, cos_t, &iacc, &qacc);
   *i_out = quantize(iacc);
   *q_out = quantize(qacc);
 }
@@ -148,7 +194,7 @@ __host__ __device__ constexpr int words_per_subblock() {
 
 // out: the packed words (kPacked) or the I plane; out_q: the Q plane
 // (kPlanes, kRaw; unused for kPacked).
-template <int MODE, int FMT>
+template <int MODE, int FMT, bool NAV>
 __global__ void __launch_bounds__(kThreads)
 synth_wire_kernel(const int32_t* __restrict__ wire,
                   const int32_t* __restrict__ ca_words,
@@ -160,6 +206,7 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
   __shared__ int32_t sin_t[512];
   __shared__ int32_t cos_t[512];
   __shared__ uint32_t ca[kMaxChan * 32];
+  __shared__ uint32_t nav[kMaxChan * 4];
   __shared__ Chan ch[kMaxChan];
 
   const int sb = blockIdx.x;
@@ -199,6 +246,14 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
     p.gain = w[11];
     ch[threadIdx.x] = p;
   }
+  if constexpr (NAV) {
+    // Four threads per channel, one table word each (n_chan * 4 <= 64).
+    if (threadIdx.x < n_chan * 4) {
+      const int32_t* w =
+          wire + (size_t(b) * wire_chans + (threadIdx.x >> 2)) * kWireLanes;
+      nav[threadIdx.x] = nav_table_word(w, threadIdx.x & 3);
+    }
+  }
   __syncthreads();
 
   const size_t row = (size_t(b) * sub_blocks + sb) * kWords;
@@ -209,24 +264,27 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
       // Two adjacent int16 samples per word and plane, the earlier one in
       // the low half (little-endian int16 order).
       uint32_t i_lo, q_lo, i_hi, q_hi;
-      accumulate_iq(2 * wi, n_chan, ch, ca, sin_t, cos_t, &i_lo, &q_lo);
-      accumulate_iq(2 * wi + 1, n_chan, ch, ca, sin_t, cos_t, &i_hi, &q_hi);
+      accumulate_iq<NAV>(2 * wi, n_chan, ch, ca, nav, sin_t, cos_t, &i_lo,
+                         &q_lo);
+      accumulate_iq<NAV>(2 * wi + 1, n_chan, ch, ca, nav, sin_t, cos_t, &i_hi,
+                         &q_hi);
       o[wi] = int32_t((uint32_t(quantize(i_lo)) & 0xFFFFu) |
                       (uint32_t(quantize(i_hi)) << 16));
       out_q[row + wi] = int32_t((uint32_t(quantize(q_lo)) & 0xFFFFu) |
                                 (uint32_t(quantize(q_hi)) << 16));
     } else if constexpr (MODE == kRaw) {
       uint32_t ia, qa;
-      accumulate_iq(wi, n_chan, ch, ca, sin_t, cos_t, &ia, &qa);
+      accumulate_iq<NAV>(wi, n_chan, ch, ca, nav, sin_t, cos_t, &ia, &qa);
       o[wi] = int32_t(ia);
       out_q[row + wi] = int32_t(qa);
     } else if constexpr (FMT == 16) {
-      sample_iq(wi, n_chan, ch, ca, sin_t, cos_t, &iv, &qv);
+      sample_iq<NAV>(wi, n_chan, ch, ca, nav, sin_t, cos_t, &iv, &qv);
       o[wi] = int32_t((uint32_t(iv) & 0xFFFFu) | (uint32_t(qv) << 16));
     } else if constexpr (FMT == 8) {
       uint32_t word = 0;
       for (int k = 0; k < 2; ++k) {
-        sample_iq(2 * wi + k, n_chan, ch, ca, sin_t, cos_t, &iv, &qv);
+        sample_iq<NAV>(2 * wi + k, n_chan, ch, ca, nav, sin_t, cos_t, &iv,
+                       &qv);
         uint32_t ib = uint32_t(wrap16(iv) >> 4) & 0xFFu;
         uint32_t qb = uint32_t(wrap16(qv) >> 4) & 0xFFu;
         word |= (ib | (qb << 8)) << (16 * k);
@@ -237,7 +295,8 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
       // byte k of the little-endian word holds samples 4k..4k+3.
       uint32_t word = 0;
       for (int k = 0; k < 16; ++k) {
-        sample_iq(16 * wi + k, n_chan, ch, ca, sin_t, cos_t, &iv, &qv);
+        sample_iq<NAV>(16 * wi + k, n_chan, ch, ca, nav, sin_t, cos_t, &iv,
+                       &qv);
         int bit = 8 * (k >> 2) + 7 - 2 * (k & 3);
         word |= uint32_t(wrap16(iv) > 0) << bit;
         word |= uint32_t(wrap16(qv) > 0) << (bit - 1);
@@ -247,15 +306,30 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
   }
 }
 
-template <int MODE, int FMT>
+template <int MODE, int FMT, bool NAV>
 int launch(const int32_t* wire, const int32_t* ca_words, const int32_t* table,
            int32_t* out, int32_t* out_q, int n_epochs, int wire_chans,
            int n_chan, int sub_blocks, void* stream) {
   dim3 grid(sub_blocks, n_epochs);
-  synth_wire_kernel<MODE, FMT>
+  synth_wire_kernel<MODE, FMT, NAV>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           wire, ca_words, table, out, out_q, wire_chans, n_chan);
   return int(cudaGetLastError());
+}
+
+// The walk (nav_gather = 0) or the mask-table (nav_gather = 1) variant.
+template <int MODE, int FMT>
+int launch_nav(const int32_t* wire, const int32_t* ca_words,
+               const int32_t* table, int32_t* out, int32_t* out_q,
+               int n_epochs, int wire_chans, int n_chan, int sub_blocks,
+               int nav_gather, void* stream) {
+  if (nav_gather) {
+    return launch<MODE, FMT, true>(wire, ca_words, table, out, out_q,
+                                   n_epochs, wire_chans, n_chan, sub_blocks,
+                                   stream);
+  }
+  return launch<MODE, FMT, false>(wire, ca_words, table, out, out_q, n_epochs,
+                                  wire_chans, n_chan, sub_blocks, stream);
 }
 
 bool bad_shape(int n_epochs, int wire_chans, int n_chan, int sub_blocks) {
@@ -269,27 +343,29 @@ bool bad_shape(int n_epochs, int wire_chans, int n_chan, int sub_blocks) {
 // wire [n_epochs, wire_chans, 12] int32, ca_words [wire_chans, 32] int32,
 // table [2, 512] int32 (sin row, cos row),
 // out [n_epochs, sub_blocks * 2048 / div] int32 with div = 1, 2, 16 for
-// fmt = 16, 8, 1. Only the first n_chan channels are summed.
+// fmt = 16, 8, 1. Only the first n_chan channels are summed. nav_gather = 1
+// takes the nav sign from the mask table, 0 from the window walk.
 extern "C" int synth_wire_launch(const int32_t* wire, const int32_t* ca_words,
                                  const int32_t* table, int32_t* out,
                                  int n_epochs, int wire_chans, int n_chan,
-                                 int sub_blocks, int fmt, void* stream) {
+                                 int sub_blocks, int fmt, int nav_gather,
+                                 void* stream) {
   if (bad_shape(n_epochs, wire_chans, n_chan, sub_blocks)) {
     return int(cudaErrorInvalidValue);
   }
   switch (fmt) {
     case 16:
-      return launch<kPacked, 16>(wire, ca_words, table, out, nullptr,
-                                 n_epochs, wire_chans, n_chan, sub_blocks,
-                                 stream);
+      return launch_nav<kPacked, 16>(wire, ca_words, table, out, nullptr,
+                                     n_epochs, wire_chans, n_chan, sub_blocks,
+                                     nav_gather, stream);
     case 8:
-      return launch<kPacked, 8>(wire, ca_words, table, out, nullptr,
-                                n_epochs, wire_chans, n_chan, sub_blocks,
-                                stream);
+      return launch_nav<kPacked, 8>(wire, ca_words, table, out, nullptr,
+                                    n_epochs, wire_chans, n_chan, sub_blocks,
+                                    nav_gather, stream);
     case 1:
-      return launch<kPacked, 1>(wire, ca_words, table, out, nullptr,
-                                n_epochs, wire_chans, n_chan, sub_blocks,
-                                stream);
+      return launch_nav<kPacked, 1>(wire, ca_words, table, out, nullptr,
+                                    n_epochs, wire_chans, n_chan, sub_blocks,
+                                    nav_gather, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -303,16 +379,18 @@ extern "C" int synth_wire_iq_launch(const int32_t* wire,
                                     const int32_t* table, void* out_i,
                                     void* out_q, int n_epochs, int wire_chans,
                                     int n_chan, int sub_blocks, int quantize,
-                                    void* stream) {
+                                    int nav_gather, void* stream) {
   if (bad_shape(n_epochs, wire_chans, n_chan, sub_blocks)) {
     return int(cudaErrorInvalidValue);
   }
   int32_t* oi = static_cast<int32_t*>(out_i);
   int32_t* oq = static_cast<int32_t*>(out_q);
   if (quantize) {
-    return launch<kPlanes, 0>(wire, ca_words, table, oi, oq, n_epochs,
-                              wire_chans, n_chan, sub_blocks, stream);
+    return launch_nav<kPlanes, 0>(wire, ca_words, table, oi, oq, n_epochs,
+                                  wire_chans, n_chan, sub_blocks, nav_gather,
+                                  stream);
   }
-  return launch<kRaw, 0>(wire, ca_words, table, oi, oq, n_epochs, wire_chans,
-                         n_chan, sub_blocks, stream);
+  return launch_nav<kRaw, 0>(wire, ca_words, table, oi, oq, n_epochs,
+                             wire_chans, n_chan, sub_blocks, nav_gather,
+                             stream);
 }

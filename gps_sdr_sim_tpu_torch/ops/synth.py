@@ -19,10 +19,20 @@ arithmetic, which all of them follow exactly, is spelled out at the top of
 csrc/synth.cu; `_channel_contribution` in
 gps_sdr_sim_tpu/ops/synth_jnp.py is the readable statement of what it
 computes.
+
+Every wrapper and plain version takes `nav_gather`: the Pallas kernel's
+`tpe > 0` variant, which reads the nav sign of code period M from a
+per-(epoch, channel) 128-entry mask table (`nav_masks`) at lane M & 127
+instead of walking the nav window. It is opt-in, as in the JAX package:
+the runner reads GPS_SDR_SIM_NAV_GATHER (`nav_gather_enabled()`) at the
+start of each run and passes it down. On real plans the two agree; where
+T = -1 (M = -1) the table's lane 127 stands in for the walk's sign-filled
+shift, so on such wires the two may differ.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import NamedTuple
 
@@ -38,8 +48,17 @@ PACK_DIV = {16: 1, 8: 2, 1: 16}
 
 _MASK40 = (1 << 40) - 1
 
-# Launches of the hand-written kernel, counted where the wrapper launches it.
-launch_counts = {"synth_wire": 0, "synth_wire_planes": 0, "synth_wire_raw": 0}
+# Launches of the hand-written kernel, counted where the wrapper launches
+# it: one key per output mode, and one per mode of the nav-gather variant.
+launch_counts = {"synth_wire": 0, "synth_wire_planes": 0, "synth_wire_raw": 0,
+                 "synth_wire_nav": 0, "synth_wire_planes_nav": 0,
+                 "synth_wire_raw_nav": 0}
+
+
+def nav_gather_enabled() -> bool:
+    """The opt-in switch of the nav mask-table variant, read at call time
+    (as gps_sdr_sim_tpu/ops/synth_pallas.py:nav_gather_enabled does)."""
+    return os.environ.get("GPS_SDR_SIM_NAV_GATHER", "0") == "1"
 
 
 def packed_bytes(n_out: int, fmt: int) -> int:
@@ -153,15 +172,43 @@ def _unpack(wire: torch.Tensor) -> dict:
     m0 = w[..., 9] & 0xFFFF
     b0 = w[..., 9] >> 16
     return dict(code_f=u64(0), code_s=u64(2), carr_f=u64(4), carr_s=u64(6),
-                t0=w[..., 8], m0r=m0 - 20 * b0, navbits=w[..., 10],
-                gain=w[..., 11])
+                t0=w[..., 8], m0=m0, b0=b0, m0r=m0 - 20 * b0,
+                navbits=w[..., 10], gain=w[..., 11])
 
 
-def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int):
+def nav_masks(m0: torch.Tensor, b0: torch.Tensor,
+              navbits: torch.Tensor) -> torch.Tensor:
+    """[B, C] nav window fields -> [B*C, 128] int32 sign masks (0 / -1).
+
+    Lane m holds -(nav bit of code period m0 + m): bit
+    clip(floor((m0 + m) / 20) - b0, 0, 31) of the window, as
+    gps_sdr_sim_tpu/ops/synth_pallas.py:nav_masks computes it. There the
+    floor is floor((mg + 0.5) * float32(1/20)); the two agree for every
+    mg = m0 + m in [-1, 2^17), and the wire's m0 has 16 bits."""
+    m = torch.arange(128, device=m0.device, dtype=torch.int64)
+    j = (floor_div(m0.long()[..., None] + m, 20)
+         - b0.long()[..., None]).clamp(0, 31)
+    mask = -((navbits.long()[..., None] >> j) & 1)
+    return mask.reshape(-1, 128).to(torch.int32)
+
+
+def nav_table_from_wire(wire: torch.Tensor) -> torch.Tensor:
+    """[B, C, 12] wire -> [B*C, 128] nav masks (see nav_masks)."""
+    u = _unpack(wire)
+    return nav_masks(u["m0"], u["b0"], u["navbits"])
+
+
+def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int,
+                   nav_gather: bool = False):
     """Channel sums (I, Q) over the first n_chan channels, int64
-    [B, SB, SUBBLOCK], before the int32 wrap."""
+    [B, SB, SUBBLOCK], before the int32 wrap. nav_gather: the nav bit of
+    code period M is lane M & 127 of the channel's nav_masks row (M = -1
+    reads lane 127) instead of the window walk."""
     dev = wire.device
     u = _unpack(wire)
+    if nav_gather:
+        masks = nav_table_from_wire(wire).reshape(
+            wire.shape[0], wire.shape[1], 128).to(torch.int64)
     k0 = (torch.arange(sub_blocks, device=dev, dtype=torch.int64)
           * SUBBLOCK)[None, :]                       # [1, SB]
     r = torch.arange(SUBBLOCK, device=dev, dtype=torch.int64)
@@ -182,8 +229,12 @@ def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int):
         M = floor_div(T, CA_SEQ_LEN)
         chip = T - CA_SEQ_LEN * M
         ca_bit = (ca[c][chip >> 5] >> (chip & 31)) & 1
-        j = floor_div(col("m0r")[..., None] + M, 20)
-        nav_bit = shr_signfill(col("navbits")[..., None], j) & 1
+        if nav_gather:
+            nav_bit = torch.gather(masks[:, c], 1, (M & 127).reshape(
+                B, -1)).reshape(M.shape) & 1
+        else:
+            j = floor_div(col("m0r")[..., None] + M, 20)
+            nav_bit = shr_signfill(col("navbits")[..., None], j) & 1
         cbase, _ = rebase(col("carr_f"), col("carr_s"), k0)
         cstep = (col("carr_s") >> 16)[..., None]
         idx = ((cbase[..., None] + r * cstep) >> 31) & 0x1FF
@@ -205,19 +256,22 @@ def quantize_int16(acc: torch.Tensor) -> torch.Tensor:
     return _wrap16(_quantize_acc(acc)).to(torch.int16)
 
 
-def _quantized_iq(wire, ca_words, n_chan: int, sub_blocks: int):
+def _quantized_iq(wire, ca_words, n_chan: int, sub_blocks: int,
+                  nav_gather: bool = False):
     """(I, Q) after (acc + 64) >> 7, int64 [B, SB, SUBBLOCK], before the
     int16 wrap."""
-    iacc, qacc = _accumulate_iq(wire, ca_words, n_chan, sub_blocks)
+    iacc, qacc = _accumulate_iq(wire, ca_words, n_chan, sub_blocks,
+                                nav_gather)
     return _quantize_acc(iacc), _quantize_acc(qacc)
 
 
 def synth_wire_ref(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
-                   n_out: int, fmt: int) -> torch.Tensor:
+                   n_out: int, fmt: int,
+                   nav_gather: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: same words, any device."""
     B = wire.shape[0]
     sub_blocks = -(-n_out // SUBBLOCK)
-    i16, q16 = _quantized_iq(wire, ca_words, n_chan, sub_blocks)
+    i16, q16 = _quantized_iq(wire, ca_words, n_chan, sub_blocks, nav_gather)
     i16 = i16.reshape(B, -1)
     q16 = q16.reshape(B, -1)
     if fmt == 16:
@@ -239,20 +293,22 @@ def synth_wire_ref(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
 
 
 def synth_wire_planes_ref(wire: torch.Tensor, ca_words: torch.Tensor,
-                          n_chan: int, n_out: int):
+                          n_chan: int, n_out: int, nav_gather: bool = False):
     """Plain version of the planes mode: (I, Q), each [B, SB * SUBBLOCK]
     int16, (acc + 64) >> 7 wrapped to int16."""
     B = wire.shape[0]
-    i, q = _accumulate_iq(wire, ca_words, n_chan, -(-n_out // SUBBLOCK))
+    i, q = _accumulate_iq(wire, ca_words, n_chan, -(-n_out // SUBBLOCK),
+                          nav_gather)
     return tuple(quantize_int16(x).reshape(B, -1) for x in (i, q))
 
 
 def synth_wire_raw_ref(wire: torch.Tensor, ca_words: torch.Tensor,
-                       n_chan: int, n_out: int):
+                       n_chan: int, n_out: int, nav_gather: bool = False):
     """Plain version of the raw mode: (I, Q), each [B, SB * SUBBLOCK]
     int32, the channel sums wrapped mod 2^32 before the rounding shift."""
     B = wire.shape[0]
-    i, q = _accumulate_iq(wire, ca_words, n_chan, -(-n_out // SUBBLOCK))
+    i, q = _accumulate_iq(wire, ca_words, n_chan, -(-n_out // SUBBLOCK),
+                          nav_gather)
     return tuple(_wrap32(x).reshape(B, -1).to(torch.int32) for x in (i, q))
 
 
@@ -285,8 +341,12 @@ def _check(wire, ca_words, n_chan: int, n_out: int) -> None:
         raise ValueError(f"no kernel for device {wire.device}")
 
 
+def _count(key: str, nav_gather: bool) -> None:
+    launch_counts[key + "_nav" if nav_gather else key] += 1
+
+
 def synth_wire(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
-               n_out: int, fmt: int) -> torch.Tensor:
+               n_out: int, fmt: int, nav_gather: bool = False) -> torch.Tensor:
     """[B, C, 12] wire -> [B, words_per_epoch(n_out, fmt)] int32 words.
 
     CUDA tensors go through the hand-written kernel (a build or launch
@@ -295,22 +355,23 @@ def synth_wire(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
         raise ValueError(f"Invalid I/Q data format: {fmt}")
     _check(wire, ca_words, n_chan, n_out)
     if wire.device.type == "cpu":
-        return synth_wire_ref(wire, ca_words, n_chan, n_out, fmt)
+        return synth_wire_ref(wire, ca_words, n_chan, n_out, fmt, nav_gather)
     from gps_sdr_sim_tpu_torch.ops import synth_cuda
 
     out = torch.empty((wire.shape[0], words_per_epoch(n_out, fmt)),
                       dtype=torch.int32, device=wire.device)
     synth_cuda.launch(wire, ca_words, trig_table(wire.device), out, n_chan,
-                      -(-n_out // SUBBLOCK), fmt)
-    launch_counts["synth_wire"] += 1
+                      -(-n_out // SUBBLOCK), fmt, nav_gather)
+    _count("synth_wire", nav_gather)
     return out
 
 
-def _synth_iq(wire, ca_words, n_chan: int, n_out: int, quantize: bool):
+def _synth_iq(wire, ca_words, n_chan: int, n_out: int, quantize: bool,
+              nav_gather: bool):
     _check(wire, ca_words, n_chan, n_out)
     if wire.device.type == "cpu":
         ref = synth_wire_planes_ref if quantize else synth_wire_raw_ref
-        return ref(wire, ca_words, n_chan, n_out)
+        return ref(wire, ca_words, n_chan, n_out, nav_gather)
     from gps_sdr_sim_tpu_torch.ops import synth_cuda
 
     sub_blocks = -(-n_out // SUBBLOCK)
@@ -319,35 +380,37 @@ def _synth_iq(wire, ca_words, n_chan: int, n_out: int, quantize: bool):
                                 dtype=dtype, device=wire.device)
                     for _ in range(2))
     synth_cuda.launch_iq(wire, ca_words, trig_table(wire.device), out_i,
-                         out_q, n_chan, sub_blocks, quantize)
-    launch_counts["synth_wire_planes" if quantize else "synth_wire_raw"] += 1
+                         out_q, n_chan, sub_blocks, quantize, nav_gather)
+    _count("synth_wire_planes" if quantize else "synth_wire_raw", nav_gather)
     return out_i, out_q
 
 
 def synth_wire_planes(wire: torch.Tensor, ca_words: torch.Tensor,
-                      n_chan: int, n_out: int):
+                      n_chan: int, n_out: int, nav_gather: bool = False):
     """[B, C, 12] wire -> (I, Q), each [B, SB * SUBBLOCK] int16: the
     Pallas kernel's quantize=True, fmt=None variant.
 
     CUDA tensors go through the hand-written kernel (a build or launch
     failure raises); CPU tensors through synth_wire_planes_ref."""
-    return _synth_iq(wire, ca_words, n_chan, n_out, quantize=True)
+    return _synth_iq(wire, ca_words, n_chan, n_out, True, nav_gather)
 
 
 def synth_wire_raw(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
-                   n_out: int):
+                   n_out: int, nav_gather: bool = False):
     """[B, C, 12] wire -> (I, Q), each [B, SB * SUBBLOCK] int32 channel
     sums before (acc + 64) >> 7: the Pallas kernel's quantize=False
     variant, a chan shard's partial sums.
 
     CUDA tensors go through the hand-written kernel (a build or launch
     failure raises); CPU tensors through synth_wire_raw_ref."""
-    return _synth_iq(wire, ca_words, n_chan, n_out, quantize=False)
+    return _synth_iq(wire, ca_words, n_chan, n_out, False, nav_gather)
 
 
 def synth_staged_packed(staged: Staged, n_out: int, fmt: int = 16,
-                        plain: bool = False) -> torch.Tensor:
+                        plain: bool = False,
+                        nav_gather: bool = False) -> torch.Tensor:
     """Staged batch -> [B, words] int32 output words (see module doc);
     plain=True runs synth_wire_ref on the staged device instead."""
     fn = synth_wire_ref if plain else synth_wire
-    return fn(staged.wire, staged.ca_words, staged.n_chan, n_out, fmt)
+    return fn(staged.wire, staged.ca_words, staged.n_chan, n_out, fmt,
+              nav_gather)

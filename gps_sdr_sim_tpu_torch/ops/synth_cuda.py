@@ -1,10 +1,13 @@
-"""Build and bind csrc/synth.cu (the hand-written Hopper synthesis kernel).
+"""Build the port's CUDA sources, and bind csrc/synth.cu (the hand-written
+Hopper synthesis kernel).
 
-The source is compiled with nvcc for sm_90a into a shared library with a
-plain C interface, at first use, into build/torch_kernels/ beside the
-package, named by the source's hash so an edited source is rebuilt. It is
-loaded with ctypes. Nothing here runs at import: the CPU tests import this
-module on machines with no nvcc and no card.
+`build(source)` compiles one source of csrc/ with nvcc for sm_90a into a
+shared library with a plain C interface, at first use, into
+build/torch_kernels/ beside the package, named by the source's stem and
+hash so an edited source is rebuilt. Libraries are loaded with ctypes
+(csrc/synth.cu here, csrc/vpu_peak.cu by tools/vpu_peak.py). Nothing here
+runs at import: the CPU tests import this module on machines with no nvcc
+and no card.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -21,6 +25,7 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "synth.cu"
+VPU_PEAK_SOURCE = _PKG / "csrc" / "vpu_peak.cu"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -37,18 +42,21 @@ def nvcc_path() -> str:
     if path.exists():
         return str(path)
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): cannot build csrc/synth.cu")
+                       "/usr/local/cuda/bin): cannot build the CUDA sources")
 
 
-def library_path() -> pathlib.Path:
+def library_path(source: pathlib.Path = SOURCE) -> pathlib.Path:
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"synth_{digest[:16]}.so"
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{source.stem}_{digest[:16]}.so"
 
 
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the kernel library if this source has not been built yet."""
-    lib = library_path()
+def build(source: pathlib.Path = SOURCE,
+          verbose: bool = False) -> pathlib.Path:
+    """Compile `source` into its library if this source has not been built
+    yet; returns the library's path. verbose: print what -Xptxas -v says
+    (registers, shared memory, spills)."""
+    lib = library_path(source)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -57,7 +65,7 @@ def build(verbose: bool = False) -> pathlib.Path:
     cmd = [nvcc_path(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(SOURCE)]
+    cmd += ["-o", tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -72,16 +80,51 @@ def build(verbose: bool = False) -> pathlib.Path:
     return lib
 
 
+def sass(lib: pathlib.Path) -> str:
+    """The text of `cuobjdump -sass` for a built library."""
+    tool = pathlib.Path(nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def sass_loops(text: str) -> dict:
+    """{mangled kernel name: [loop, ...]} from the text of `cuobjdump
+    -sass`. A loop is the opcodes from a backward branch's target to the
+    branch, predicates stripped and NOPs dropped, so its length is what one
+    trip issues."""
+    loops = {}
+    for block in re.split(r"Function : ", text)[1:]:
+        ins = []
+        for addr, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
+                                   block):
+            words = op.split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                ins.append((int(addr, 16), words))
+        index = {a: i for i, (a, _) in enumerate(ins)}
+        found = []
+        for i, (a, words) in enumerate(ins):
+            if words[0] != "BRA" or len(words) < 2:
+                continue
+            target = int(words[1].strip("`()"), 16)
+            if target < a and target in index:
+                found.append([w[0] for _, w in ins[index[target]:i + 1]
+                              if w[0] != "NOP"])
+        loops[block.split(None, 1)[0]] = found
+    return loops
+
+
 def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.synth_wire_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.synth_wire_iq_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -96,11 +139,9 @@ def _check_devices(wire: torch.Tensor, *others: torch.Tensor) -> None:
             raise ValueError("kernel operands must be contiguous")
 
 
-def _call(fn_name: str, wire: torch.Tensor, *args) -> None:
-    """Call a launcher of the library on the current stream of wire's
-    device and raise on a non-zero cudaGetLastError()."""
-    lib = load()
-    dev = wire.device
+def call(lib, fn_name: str, dev: torch.device, *args) -> None:
+    """Call launcher `fn_name` of `lib` on the current stream of device
+    `dev` and raise on a non-zero cudaGetLastError()."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, fn_name)(*args, stream)
@@ -109,28 +150,31 @@ def _call(fn_name: str, wire: torch.Tensor, *args) -> None:
 
 
 def launch(wire: torch.Tensor, ca_words: torch.Tensor, table: torch.Tensor,
-           out: torch.Tensor, n_chan: int, sub_blocks: int, fmt: int) -> None:
-    """Enqueue the packed-word kernel on the current stream of wire's
-    device.
+           out: torch.Tensor, n_chan: int, sub_blocks: int, fmt: int,
+           nav_gather: bool) -> None:
+    """Enqueue the packed-word kernel (the nav mask-table variant when
+    nav_gather) on the current stream of wire's device.
 
     The caller (ops.synth.synth_wire) has checked shapes, types and
     contiguity and allocated `out`; this checks devices and raises on a
     non-zero cudaGetLastError()."""
     _check_devices(wire, ca_words, table, out)
-    _call("synth_wire_launch", wire, wire.data_ptr(), ca_words.data_ptr(),
-          table.data_ptr(), out.data_ptr(), wire.shape[0], wire.shape[1],
-          n_chan, sub_blocks, fmt)
+    call(load(), "synth_wire_launch", wire.device, wire.data_ptr(),
+         ca_words.data_ptr(), table.data_ptr(), out.data_ptr(),
+         wire.shape[0], wire.shape[1], n_chan, sub_blocks, fmt,
+         int(nav_gather))
 
 
 def launch_iq(wire: torch.Tensor, ca_words: torch.Tensor, table: torch.Tensor,
               out_i: torch.Tensor, out_q: torch.Tensor, n_chan: int,
-              sub_blocks: int, quantize: bool) -> None:
+              sub_blocks: int, quantize: bool, nav_gather: bool) -> None:
     """Enqueue the I/Q plane kernel: int16 planes after (acc + 64) >> 7
     (quantize=True) or the raw int32 channel sums (quantize=False).
 
     The caller (ops.synth.synth_wire_planes / synth_wire_raw) has checked
     the wire and allocated both planes."""
     _check_devices(wire, ca_words, table, out_i, out_q)
-    _call("synth_wire_iq_launch", wire, wire.data_ptr(), ca_words.data_ptr(),
-          table.data_ptr(), out_i.data_ptr(), out_q.data_ptr(),
-          wire.shape[0], wire.shape[1], n_chan, sub_blocks, int(quantize))
+    call(load(), "synth_wire_iq_launch", wire.device, wire.data_ptr(),
+         ca_words.data_ptr(), table.data_ptr(), out_i.data_ptr(),
+         out_q.data_ptr(), wire.shape[0], wire.shape[1], n_chan, sub_blocks,
+         int(quantize), int(nav_gather))

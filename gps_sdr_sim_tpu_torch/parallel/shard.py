@@ -11,9 +11,10 @@ Counterpart of synth_epochs_sharded in gps_sdr_sim_tpu/parallel/shard.py
 
 A time-only mesh launches the planes mode of the kernel (int16 I/Q after
 the quantization); a chan axis above 1 launches the raw mode on every chan
-shard. Each launch runs on its device's current stream; the copy of a
-partial sum to another card is a plain torch copy, which orders itself
-against both devices' current streams.
+shard; nav_gather=True runs either's nav-gather variant.
+Each launch runs on its device's current stream; the copy of a partial sum
+to another card is a plain torch copy, which orders itself against both
+devices' current streams.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ def _reduce_chan(parts: list, device: torch.device) -> torch.Tensor:
     return synth.quantize_int16(acc)
 
 
-def synth_epochs_sharded(eb, n_out: int, mesh: Mesh,
-                         plain: bool = False) -> list:
+def synth_epochs_sharded(eb, n_out: int, mesh: Mesh, plain: bool = False,
+                         nav_gather: bool = False) -> list:
     """EpochBatch -> the [B, n_out, 2] int16 samples, sharded over `mesh`.
 
     Returns one piece per time shard, in epoch order, each on its time
@@ -85,7 +86,7 @@ def synth_epochs_sharded(eb, n_out: int, mesh: Mesh,
         for c, dev in enumerate(row):
             w = _upload(wire[e0:e0 + b_loc, c * c_loc:(c + 1) * c_loc], dev)
             k = synth.ca_device(ca[c * c_loc:(c + 1) * c_loc], dev)
-            outs.append(kernel(w, k, c_loc, n_out))
+            outs.append(kernel(w, k, c_loc, n_out, nav_gather))
         launched.append((row[0], min(b_loc, B - e0), outs))
 
     pieces = []

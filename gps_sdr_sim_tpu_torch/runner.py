@@ -125,7 +125,9 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
     impl: "cuda" (the hand-written kernel; needs a CUDA device) or "torch"
     (the kernel's plain PyTorch version, on `device`); "cuda-sharded" or
     "torch-sharded" run the same over `mesh` (parallel.mesh.Mesh; default
-    auto_mesh over every local device of `device`'s type)."""
+    auto_mesh over every local device of `device`'s type). The kernel's
+    nav mask-table variant runs when GPS_SDR_SIM_NAV_GATHER=1 at this
+    call (ops.synth.nav_gather_enabled)."""
     if log is None:
         log = lambda s: print(s, end="", file=sys.stderr, flush=True)
     device = resolve_device(impl, device)
@@ -143,6 +145,7 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
                              f"a mesh of CUDA devices")
     n = scn.iq_buff_size
     fmt = scn.config.data_format
+    nav_gather = synth.nav_gather_enabled()
     stats = RunStats()
     t_start = time.time()
     # (pieces: [(host array or tensor, copy-done event or None)], valid
@@ -173,10 +176,10 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
         eb = pad_epochs(plan_epochs(seg, e, e1, scn.delt), batch_epochs)
         if sharded:
             outs = [pack(p, fmt) for p in synth_epochs_sharded(
-                eb, n, mesh, plain=plain)]
+                eb, n, mesh, plain, nav_gather)]
         else:
             outs = [synth.synth_staged_packed(synth.stage_epochs(eb, device),
-                                              n, fmt, plain=plain)]
+                                              n, fmt, plain, nav_gather)]
         pieces = [fetch_async(o) if o.device.type == "cuda" else (o, None)
                   for o in outs]
         stats.plan_seconds += time.time() - t_plan

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, and the
-sharded path on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, and
+the sharded path on the card.
 
 Needs a CUDA device (a CUDA kernel has no CPU mode), so it skips here.
 This file imports no JAX, so on a machine without JAX it runs as
@@ -21,6 +21,7 @@ from gps_sdr_sim_tpu_torch.testing import (
     golden_scenario,
     random_wire,
 )
+from gps_sdr_sim_tpu_torch.tools import vpu_peak
 
 
 @pytest.mark.gpu
@@ -97,3 +98,72 @@ def test_sharded_2x2_matches_one_card(cards):
         out[impl] = buf.getvalue()
     assert len(out["cuda"]) == scn.n_output_epochs * scn.iq_buff_size * 4
     assert out["cuda-sharded"] == out["cuda"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["16", "8", "1", "planes", "raw"])
+def test_nav_gather_modes_match_plain_versions(mode):
+    """The nav mask-table variant of every output mode, word for word, on
+    random wires whose t0 = -1 rows read lane 127 of the table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    if mode in ("planes", "raw"):
+        name, kw = f"synth_wire_{mode}", {}
+    else:
+        name, kw = "synth_wire", {"fmt": int(mode)}
+    fn, ref = getattr(synth, name), getattr(synth, f"{name}_ref")
+    for seed in range(4):
+        wire, ca, n_chan = random_wire(seed, n_epochs=3, max_gain=400)
+        w, c = torch.from_numpy(wire).to(dev), torch.from_numpy(ca).to(dev)
+        before = synth.launch_counts[f"{name}_nav"]
+        got = fn(w, c, n_chan, 5000, nav_gather=True, **kw)
+        assert synth.launch_counts[f"{name}_nav"] == before + 1
+        want = ref(w, c, n_chan, 5000, nav_gather=True, **kw)
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        assert all(torch.equal(g, r) for g, r in zip(got, want)), seed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cards", [1, 4])
+def test_sharded_2x2_nav_gather_matches_one_card(cards, monkeypatch):
+    """With GPS_SDR_SIM_NAV_GATHER=1, a 2x2 mesh (the raw kernel's gather
+    variant, chan reduction across cards when cards=4) writes the bytes of
+    the single-device gather kernel on one card, and on a real plan those
+    equal the window walk's."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    scn = build_scenario(ScenarioConfig(
+        nav_file=str(NAV), motion_file=str(DATA / "circle.csv"),
+        duration=2.0, samp_freq=2.6e6, data_format=16))
+    devs = [torch.device("cuda", i % cards) for i in range(4)]
+    out = {}
+    runs = (("walk", "0", "cuda", dict(device="cuda:0")),
+            ("cuda", "1", "cuda", dict(device="cuda:0")),
+            ("cuda-sharded", "1", "cuda-sharded",
+             dict(mesh=make_mesh(2, 2, devs))))
+    for label, switch, impl, kw in runs:
+        monkeypatch.setenv("GPS_SDR_SIM_NAV_GATHER", switch)
+        before = dict(synth.launch_counts)
+        buf = io.BytesIO()
+        run_simulation(scn, buf, batch_epochs=10, log=lambda s: None,
+                       impl=impl, **kw)
+        out[label] = buf.getvalue()
+        key = {"walk": "synth_wire", "cuda": "synth_wire_nav",
+               "cuda-sharded": "synth_wire_raw_nav"}[label]
+        assert synth.launch_counts[key] > before[key]
+    assert out["cuda-sharded"] == out["cuda"] == out["walk"]
+
+
+@pytest.mark.gpu
+def test_vpu_peak_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    seed, table = vpu_peak.inputs("cuda")
+    for case in vpu_peak.CASES:
+        before = vpu_peak.launch_counts["vpu_peak"]
+        got = vpu_peak.vpu_peak(seed, table, 3, 5, case)
+        assert vpu_peak.launch_counts["vpu_peak"] == before + 1
+        assert torch.equal(got, vpu_peak.vpu_peak_ref(seed, table, 3, 5,
+                                                      case)), case

@@ -1,9 +1,9 @@
 """The port's runner and CLI (gps_sdr_sim_tpu_torch) on the CPU: the C-
-reference goldens, byte and stderr parity with the JAX CLI, the refusals,
-and that the port runs without JAX."""
+reference goldens, byte and stderr parity with the JAX CLI, the errors of
+the shard and multihost flags, and that the port runs without JAX
+(--profile is tested in test_torch_tools.py)."""
 
 import os
-import re
 import socket
 import subprocess
 import sys
@@ -74,16 +74,6 @@ def test_default_impl_needs_cuda(tmp_path, capsys):
     assert "ERROR: impl 'cuda' runs the CUDA kernel and needs a CUDA " \
         "device, got 'cpu'" in capsys.readouterr().err
     assert not (tmp_path / "x.bin").exists()
-
-
-def test_unported_flags_refused(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        main(STATIC + ["-o", str(tmp_path / "x.bin"), "--impl", "torch",
-                       "--device", "cpu", "--profile", "p"])
-    assert e.value.code == 1
-    err = capsys.readouterr().err
-    assert re.search(r"ERROR: --profile is not yet supported by the torch "
-                     r"port", err), err
 
 
 def _exit_and_error(fn, argv, capsys):
