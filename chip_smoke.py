@@ -49,7 +49,21 @@ of findings (any failure raises and exits non-zero):
  11. --profile: one short run of the CLI's main() in this process writes a
     torch.profiler trace that parses and holds synth_wire_kernel events;
     the summed kernel time over the traced window is the kernels' busy
-    share of that window.
+    share of that window;
+ 12. the receiver closure (gps_sdr_sim_tpu_torch.receiver) on the card: a
+    26 s static base capture (Tokyo, 2.048 Msps, SC16) synthesized by the
+    CUDA kernel, byte-equal to the plain version's capture on the card,
+    goes through the receiver CLI's main() with --track 26 --pvt
+    --rinex-obs --rinex-nav: the acquired PRNs must be the scenario's
+    visible set, every channel must decode a parity-valid subframe, and the
+    fix must lie within 10 m (max residual below 5 m); a rover capture ~32 m
+    away (26 s, also byte-equal to the plain version's) is tracked on the
+    card and solved against the base's RINEX pair as a double-difference
+    baseline that must FIX (ratio above 3) within 5 mm, DD phase rms below
+    5 mm; on the first 2 s of the base the search, acquisition and tracking
+    on the card agree with the same functions on the CPU within the CPU
+    tests' tolerances. Prints acquisition, tracking, decode/PVT and RTK
+    times.
 
 The line before the last is the kernel report; the last line is
 {"ok": true, "device": {...}}.
@@ -57,6 +71,7 @@ The line before the last is the kernel report; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -680,6 +695,17 @@ def phase_vpu_peak(sass_ops: dict) -> dict:
             "bound_by": by}
 
 
+def read_trace(path) -> tuple:
+    """(complete events, kernel events, summed kernel us, traced window
+    us) of a torch.profiler Chrome trace."""
+    events = [e for e in json.loads(pathlib.Path(path).read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    start = min(e["ts"] for e in events)
+    window = max(e["ts"] + e["dur"] for e in events) - start
+    return events, kernels, sum(e["dur"] for e in kernels), window
+
+
 def phase_profile(dev) -> None:
     """Phase 11: one short run of the CLI's main() with --profile on the
     card, in this process."""
@@ -706,17 +732,12 @@ def phase_profile(dev) -> None:
         traces = list(prof.glob("*.pt.trace.json"))
         if len(traces) != 1:
             raise AssertionError(f"--profile wrote {traces}")
-        events = [e for e in json.loads(traces[0].read_text())["traceEvents"]
-                  if e.get("ph") == "X"]
-        kernels = [e for e in events if e.get("cat") == "kernel"]
+        events, kernels, busy, window = read_trace(traces[0])
         synth = [e for e in kernels if "synth_wire_kernel" in e["name"]]
         if not synth:
             raise AssertionError(f"the trace holds no synth_wire_kernel "
                                  f"event ({len(kernels)} kernel events)")
         copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
-        start = min(e["ts"] for e in events)
-        window = max(e["ts"] + e["dur"] for e in events) - start
-        busy = sum(e["dur"] for e in kernels)
         say(f"phase 11 --profile: 30 s of the canonical scenario (SC16, "
             f"batches of 100 epochs, {time.perf_counter() - t:.2f} s); trace "
             f"{traces[0].name} parses, {len(events)} events, "
@@ -726,6 +747,214 @@ def phase_profile(dev) -> None:
             f"{len(copies)} copies ({sum(e['dur'] for e in copies) / 1e3:.3f} "
             f"ms) in a traced window of {window / 1e3:.3f} ms: kernel busy "
             f"share of the traced window {busy / window:.4f}")
+
+
+@contextlib.contextmanager
+def timed(targets):
+    """Wrap each attribute `name` of `module` ((module, name) pairs) so that
+    its calls add their wall seconds to the yielded dict under `name`;
+    restores the attributes on exit."""
+    seconds = dict.fromkeys((name for _, name in targets), 0.0)
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(name, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                seconds[name] += time.perf_counter() - t
+        return run
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield seconds
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_receiver(torch, dev, card: str) -> dict:
+    """Phase 12: the receiver closure, card against CPU, and RTK, on
+    captures synthesized by the CUDA kernel, each held byte for byte
+    against the plain version's capture of the same scenario on the card.
+    Returns the synth_wire launches of this phase (counted from 0) and the
+    largest |kernel - plain| sample difference over its captures."""
+    import numpy as np
+
+    from gps_sdr_sim_tpu_torch import receiver
+    from gps_sdr_sim_tpu_torch.ops import synth
+    from gps_sdr_sim_tpu_torch.receiver import acquire, load_iq, pvt, track
+    from gps_sdr_sim_tpu_torch.receiver.__main__ import main as rx_main
+    from gps_sdr_sim_tpu_torch.receiver.acquire import search, search_prep
+    from gps_sdr_sim_tpu_torch.runner import run_simulation
+    from gps_sdr_sim_tpu_torch.testing import (
+        RX_ACQ_HEADER,
+        RX_FS,
+        RX_ROVER,
+        RX_TRACK_HEADER,
+        TOKYO,
+        receiver_devices_agree,
+        rtk_from_files,
+        rx_scenario,
+        rx_table,
+    )
+    from gps_sdr_sim_tpu_torch.tools.card import time_ms
+
+    worst = 0
+
+    def capture(scn) -> tuple[bytes, float]:
+        """(SC16 bytes, seconds) of scn through impl="cuda" on the card,
+        after checking them against impl="torch" on the card."""
+        nonlocal worst
+        runs = []
+        for impl in ("cuda", "torch"):
+            buf = io.BytesIO()
+            t = time.perf_counter()
+            run_simulation(scn, buf, batch_epochs=16, log=lambda s: None,
+                           impl=impl, device=dev)
+            runs.append((buf.getvalue(), time.perf_counter() - t))
+        got, want = (np.frombuffer(b, np.int16) for b, _ in runs)
+        diff = int(np.abs(got.astype(np.int32) - want).max(initial=0))
+        worst = max(worst, diff)
+        if got.shape != want.shape or diff:
+            raise AssertionError(f"the CUDA capture != the plain version's: "
+                                 f"{got.shape} {want.shape}, max |diff| "
+                                 f"{diff}")
+        return runs[0]
+
+    for k in synth.launch_counts:
+        synth.launch_counts[k] = 0
+    scn = rx_scenario(26.0)
+    seg = scn.segments[0]
+    visible = sorted(int(p) for p in seg.prn[seg.active])
+    base, synth_s = capture(scn)
+    if synth.launch_counts["synth_wire"] == 0:
+        raise AssertionError("the capture did not come from synth_wire")
+    with tempfile.TemporaryDirectory() as tmp:
+        path, obs, nav = (pathlib.Path(tmp) / name for name in
+                          ("base26.bin", "base.obs", "base.nav"))
+        path.write_bytes(base)
+        out, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        with timed([(receiver, "acquire"), (receiver, "track"),
+                    (pvt, "channel_frames"), (pvt, "prepare_observables"),
+                    (pvt, "observables"), (pvt, "solve")]) as stage, \
+                contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = rx_main([str(path), "-s", "2048000", "-b", "16", "--track",
+                          "26", "--pvt", "--rinex-obs", str(obs),
+                          "--rinex-nav", str(nav)])
+        main_s = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"receiver main() exited {rc}:\n"
+                                 f"{err.getvalue()[-4000:]}")
+        stdout = out.getvalue()
+        acquired = sorted(int(r[0]) for r in rx_table(stdout, RX_ACQ_HEADER))
+        if acquired != visible:
+            raise AssertionError(f"acquired PRNs {acquired} != the visible "
+                                 f"set {visible}")
+        tracked = rx_table(stdout, RX_TRACK_HEADER)
+        no_sbf = [r[0] for r in tracked if int(r[3]) < 1]
+        if len(tracked) != len(visible) or no_sbf:
+            raise AssertionError(f"channels without a parity-valid "
+                                 f"subframe: {no_sbf} of {len(tracked)}")
+        ecef = next(ln for ln in stdout.splitlines()
+                    if ln.strip().startswith("ECEF"))
+        fix_err = float(np.linalg.norm(
+            np.array([float(v) for v in ecef.split()[1:4]]) - TOKYO))
+        resid = float(re.search(r"max residual ([\d.]+) m", stdout).group(1))
+        if fix_err >= 10.0 or resid >= 5.0:
+            raise AssertionError(f"PVT fix {fix_err:.2f} m from the true "
+                                 f"position, max residual {resid} m")
+        decode_pvt_s = sum(stage[k] for k in ("channel_frames",
+                                              "prepare_observables",
+                                              "observables", "solve"))
+        say(f"phase 12 receiver closure: 26 s base capture synthesized by "
+            f"the CUDA kernel in {synth_s:.2f} s (= the plain version's "
+            f"bytes); receiver main() --track 26 --pvt --rinex-obs "
+            f"--rinex-nav on {dev} in {main_s:.2f} s: acquired {acquired} = "
+            f"the visible set; {len(tracked)} channels, subframes per channel "
+            f"{[int(r[3]) for r in tracked]} (all parity-valid); fix "
+            f"{fix_err:.2f} m from the true position, max residual "
+            f"{resid:.2f} m")
+
+        # The rover, tracked beside the base's RINEX pair.
+        x = load_iq(capture(rx_scenario(26.0, RX_ROVER))[0], 16)
+        t = time.perf_counter()
+        acq = acquire(x, RX_FS, dopp_step=50.0, device=dev)
+        rover_acq_s = time.perf_counter() - t
+        t = time.perf_counter()
+        rover = track(x, RX_FS, acq, device=dev)
+        rover_track_s = time.perf_counter() - t
+        t = time.perf_counter()
+        rtk = rtk_from_files(rover, obs, nav)
+        rtk_s = time.perf_counter() - t
+    bl_err = float(np.linalg.norm(rtk.baseline - (RX_ROVER - TOKYO)))
+    if not (rtk.fixed and rtk.ratio > 3.0 and bl_err < 0.005
+            and rtk.phase_rms < 0.005):
+        raise AssertionError(f"RTK: fixed {rtk.fixed}, ratio {rtk.ratio}, "
+                             f"baseline error {bl_err * 1e3:.2f} mm, DD "
+                             f"phase rms {rtk.phase_rms * 1e3:.2f} mm")
+    launches = synth.launch_counts["synth_wire"]
+    say(f"phase 12 RTK: rover 26 s synthesized (= the plain version's "
+        f"bytes) and tracked on {dev}, against the base's RINEX obs and nav "
+        f"from main(): FIX, ratio {rtk.ratio:.1f}, |b| "
+        f"{np.linalg.norm(rtk.baseline):.4f} m, fixed-baseline error "
+        f"{bl_err * 1e3:.3f} mm, DD phase rms {rtk.phase_rms * 1e3:.3f} mm, "
+        f"{rtk.n_sats} sats x {rtk.n_epochs} epochs")
+
+    x2 = load_iq(base, 16, count=int(2.0 * RX_FS))
+    t = time.perf_counter()
+    agree = receiver_devices_agree(x2, dev)
+    say(f"phase 12 card vs CPU, first 2 s ({agree['channels']} channels, "
+        f"{len(x2) // 2048} ms): search, acquisition and tracking within "
+        f"tolerance (search rel {agree['search_rel']:.3g}, metric rel "
+        f"{agree['metric_rel']:.3g}, prompt rel {agree['prompt_rel']:.3g}, "
+        f"Doppler {agree['doppler_hz']:.3g} Hz, code phase "
+        f"{agree['code_phase_chip']:.3g} chip, prompt sign flips "
+        f"{agree['sign_flips']}) in {time.perf_counter() - t:.2f} s")
+
+    # The tracking loop's device busy share: 1 s of the same capture under
+    # torch.profiler.
+    acq = acquire(x2, RX_FS, dopp_step=50.0, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "track.json"
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            track(x2[:int(RX_FS)], RX_FS, acq, device=dev)
+        prof.export_chrome_trace(str(path))
+        _, kernels, busy, window = read_trace(path)
+    if not kernels:
+        raise AssertionError("the tracking trace holds no kernel event")
+    say(f"phase 12 tracking trace (1000 ms of {sum(a.detected for a in acq)} "
+        f"channels under torch.profiler): {len(kernels)} kernel events "
+        f"({len(kernels) / 1000:.1f} per tracked ms), {busy / 1e3:.3f} ms of "
+        f"kernels in a traced window of {window / 1e3:.3f} ms: kernel busy "
+        f"share of the traced window {busy / window:.4f}")
+
+    _, _, codes, dopp, xb = search_prep(x, RX_FS, None, 5000.0, 50.0, 4)
+    staged = [torch.from_numpy(v).to(dev) for v in
+              (xb, np.fft.fft(codes, axis=-1).astype(np.complex64), dopp)]
+    search_ms = time_ms(lambda: search(*staged, RX_FS), 5, dev)
+    n_ms = rover.prompt.shape[0]
+    acq_ms = [stage["acquire"] * 1e3, rover_acq_s * 1e3]
+    track_s = [stage["track"], rover_track_s]
+    say(f"phase 12 receiver times on {card}: acquisition (32 PRNs x 201 "
+        f"bins x 4 ms, fine Doppler on the host) acquire() base/rover "
+        f"{'/'.join(f'{v:.1f}' for v in acq_ms)} ms wall, search on the card "
+        f"{search_ms:.3f} ms (CUDA events, best of 5); tracking "
+        f"{len(tracked)}/{len(rover.prns)} channels x {n_ms} ms in "
+        f"{'/'.join(f'{v:.2f}' for v in track_s)} s = "
+        f"{'/'.join(f'{n_ms / v:.0f}' for v in track_s)} ms tracked per "
+        f"wall second; decode/PVT (main()'s channel_frames, observables, "
+        f"solve) {decode_pvt_s:.2f} s; RTK (rover RINEX write, read, "
+        f"solve_baseline) {rtk_s:.2f} s; synth_wire launches in this phase "
+        f"{launches}, kernel = plain version on every capture (max |diff| "
+        f"{worst})")
+    return {"synth_wire": launches, "max_abs_err": worst}
 
 
 def main() -> int:
@@ -761,9 +990,10 @@ def main() -> int:
     phase_shard_files(torch, dev)
     vpu = phase_vpu_peak(sass_ops)
     phase_profile(dev)
+    rx = phase_receiver(torch, dev, card)
 
     # Each kernel's launches on the path that runs it.
-    paths = {"synth_wire": launches["synth_wire"],
+    paths = {"synth_wire": launches["synth_wire"] + rx["synth_wire"],
              "synth_wire_planes": sharded["1x1"][0]["synth_wire_planes"],
              "synth_wire_raw": sharded["2x2"][0]["synth_wire_raw"],
              "synth_wire_nav": nav_launches["synth_wire_nav"],
@@ -794,6 +1024,14 @@ def main() -> int:
                "replaces": replaces, "launches": paths[name],
                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound, "bound_by": by, "library_ms": None}
+        if name == "synth_wire":
+            row["max_abs_err"] = max(max_err[name], rx["max_abs_err"])
+            row["launches_by_path"] = {
+                "phase 6 canonical": launches["synth_wire"],
+                "phase 12 receiver": rx["synth_wire"]}
+            row["max_abs_err_by_path"] = {
+                "phase 3 kernel vs plain": max_err[name],
+                "phase 12 receiver": rx["max_abs_err"]}
         if packed:
             for field, i in (("ms", 0), ("plain_ms", 1), ("bound_ms", 2)):
                 row[f"{field}_by_format"] = {

@@ -15,8 +15,11 @@ Ported (same module names): ops/synth.py + ops/synth_cuda.py +
 csrc/synth.cu (the fused Pallas synthesis kernel and its rebase prologue,
 as one hand-written sm_90a CUDA kernel with three output modes, each with
 its plain PyTorch version), ops/quantize.py, parallel/ (mesh, sharded
-synthesis, shard files), runner.py and cli.py. testing.py holds the golden
-criterion for tests and chip_smoke.py.
+synthesis, shard files), runner.py and cli.py. receiver/ is the software
+receiver: FFT acquisition and DLL/PLL tracking in torch on the card, and
+the JAX package's NumPy decode, PVT, RINEX and RTK modules copied with only
+their import paths changed. testing.py holds the golden criterion and the
+receiver's tolerances for tests and chip_smoke.py.
 
 This package imports neither JAX nor gps_sdr_sim_tpu: the machine with
 the card has no JAX.

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, and
-the sharded path on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, the
+sharded path on the card, and the receiver on the card against the CPU.
 
 Needs a CUDA device (a CUDA kernel has no CPU mode), so it skips here.
 This file imports no JAX, so on a machine without JAX it runs as
@@ -20,6 +20,9 @@ from gps_sdr_sim_tpu_torch.testing import (
     NAV,
     golden_scenario,
     random_wire,
+    receiver_devices_agree,
+    rx_capture,
+    rx_scenario,
 )
 from gps_sdr_sim_tpu_torch.tools import vpu_peak
 
@@ -167,3 +170,14 @@ def test_vpu_peak_kernel_matches_plain_version():
         assert vpu_peak.launch_counts["vpu_peak"] == before + 1
         assert torch.equal(got, vpu_peak.vpu_peak_ref(seed, table, 3, 5,
                                                       case)), case
+
+
+@pytest.mark.gpu
+def test_receiver_card_matches_cpu():
+    """The receiver's search, acquisition and 1.9 s of tracking on the card
+    against the same functions on the CPU, on a capture synthesized by the
+    CUDA kernel, within the CPU tests' tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = rx_capture(rx_scenario(2.0), "cuda", "cuda")
+    assert receiver_devices_agree(x, "cuda")["channels"] == 13

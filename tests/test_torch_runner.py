@@ -197,6 +197,8 @@ import gps_sdr_sim_tpu_torch, gps_sdr_sim_tpu_torch.cli
 import gps_sdr_sim_tpu_torch.runner, gps_sdr_sim_tpu_torch.testing
 import gps_sdr_sim_tpu_torch.ops.synth, gps_sdr_sim_tpu_torch.ops.synth_cuda
 import gps_sdr_sim_tpu_torch.ops.quantize, gps_sdr_sim_tpu_torch.parallel
+import gps_sdr_sim_tpu_torch.receiver.__main__, gps_sdr_sim_tpu_torch.receiver.rtk
+import gps_sdr_sim_tpu_torch.receiver.pvt, gps_sdr_sim_tpu_torch.receiver.rinex
 rc = gps_sdr_sim_tpu_torch.cli.main(sys.argv[1:])
 assert not any(m.split(".")[0] in ("jax", "gps_sdr_sim_tpu")
                for m in sys.modules if sys.modules[m] is not None), \
