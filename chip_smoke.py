@@ -63,7 +63,21 @@ of findings (any failure raises and exits non-zero):
     5 mm; on the first 2 s of the base the search, acquisition and tracking
     on the card agree with the same functions on the CPU within the CPU
     tests' tolerances. Prints acquisition, tracking, decode/PVT and RTK
-    times.
+    times;
+ 13. the DeviceBatch path: (a) the canonical workload planned by plan_batch
+    in 100-epoch batches through ops.synth.synth_batch (the row kernel,
+    planes) and parallel.synth_rows_sharded on a 2x2 mesh of this card (raw
+    mode and the chan reduction), every batch equal to the row kernel's
+    plain version on the card; packed, the batches give the golden
+    SC16/SC08/SC01 checksums (the 2x2 mesh's SC16); (b) run_simulation with
+    impl="closed" (three formats, real-time factor of SC16) and
+    "closed-sharded" on the 2x2 mesh (SC16) give them too, with
+    plan_seconds beside the wire path's; (c) the JAX package's multi-chip
+    dry-run checklist on this card: closed-sharded = closed, row-sharded on
+    1x1 and 2x2 = closed, wire-sharded = wire; (d) each row mode's kernel
+    and plain-version time on one 100-epoch batch beside its bound; (e) the
+    tools/bench_scaling sweep of the three impls over meshes of 1, 2 and 4
+    entries of this card.
 
 The line before the last is the kernel report; the last line is
 {"ok": true, "device": {...}}.
@@ -112,6 +126,12 @@ KERNELS = {
     "synth_wire_planes_nav": "gps_sdr_sim_tpu/ops/synth_pallas.py:565",
     "synth_wire_raw_nav": "gps_sdr_sim_tpu/ops/synth_pallas.py:565",
 }
+# The row form's wrappers; both replace the row-parameter form of K1
+# (_get_pallas_fn with uniform=False; quantize=False for the raw mode).
+ROW_KERNELS = {
+    "synth_rows_planes": "gps_sdr_sim_tpu/ops/synth_pallas.py:508",
+    "synth_rows_raw": "gps_sdr_sim_tpu/ops/synth_pallas.py:508",
+}
 VPU_PEAK_REPLACES = "tools/vpu_peak.py:58"
 NAV_SWITCH = "GPS_SDR_SIM_NAV_GATHER"
 RATES = (1.0e6, 1310720.0, 1331200.0, 2.6e6)
@@ -158,8 +178,9 @@ def sass_loop_instructions(loops: dict) -> dict:
     the multiply-high that the floor divisions by 1023 (and, in the walk,
     by 20) compile to. The loop is kept rolled (csrc/synth.cu), so its
     length is what one (sample, channel) issues. Keys: synth_wire/16,
-    synth_wire/8, synth_wire/1, synth_wire_planes, synth_wire_raw, and
-    the same with _nav for the mask-table variant."""
+    synth_wire/8, synth_wire/1, synth_wire_planes, synth_wire_raw, the
+    same with _nav for the mask-table variant, and synth_rows_planes and
+    synth_rows_raw for the row form."""
     modes = {("0", "16"): "synth_wire/16", ("0", "8"): "synth_wire/8",
              ("0", "1"): "synth_wire/1", ("1", "0"): "synth_wire_planes",
              ("2", "0"): "synth_wire_raw"}
@@ -168,16 +189,23 @@ def sass_loop_instructions(loops: dict) -> dict:
         names[(mode, fmt, "0")] = key
         base, _, f = key.partition("/")
         names[(mode, fmt, "1")] = f"{base}_nav/{f}" if f else f"{key}_nav"
+    rows = {"1": "synth_rows_planes", "2": "synth_rows_raw"}
+    names.update({(mode, "rows"): key for mode, key in rows.items()})
     counts = {}
     for fn, found in loops.items():
         m = re.match(r"\S*synth_wire_kernelILi(\d)ELi(\d+)ELb([01])E", fn)
-        if not m:
+        r = re.match(r"\S*synth_rows_kernelILi(\d)E", fn)
+        if m:
+            key = names[m.groups()]
+        elif r:
+            key = rows[r.group(1)]
+        else:
             continue
         with_div = [len(loop) for loop in found
                     if any(o.startswith("IMAD.HI") for o in loop)]
         if not with_div:
             raise AssertionError(f"no channel loop found in {fn}")
-        counts[names[m.groups()]] = min(with_div)
+        counts[key] = min(with_div)
     if sorted(counts) != sorted(names.values()):
         raise AssertionError(f"SASS holds kernels {sorted(counts)}")
     return counts
@@ -374,12 +402,13 @@ def golden_checksums() -> dict:
 
 def canonical_runs(torch, scns: dict, label: str, timed_formats,
                    formats=FORMATS, on_mismatch=None,
-                   **run_kw) -> tuple[dict, dict]:
+                   **run_kw) -> tuple[dict, dict, dict]:
     """The canonical workload in `formats` through run_simulation(
     **run_kw), with every launch count set to 0 just before and read just
     after; then null-sink passes of `timed_formats`. Returns (launch
-    counts, real-time factor by timed format). A checksum that differs from
-    the golden raises, after on_mismatch(fmt) where given."""
+    counts, real-time factor by timed format, RunStats of the checksum
+    pass by format). A checksum that differs from the golden raises, after
+    on_mismatch(fmt) where given."""
     from gps_sdr_sim_tpu_torch.ops import synth
     from gps_sdr_sim_tpu_torch.ops.quantize import wrap_int32
     from gps_sdr_sim_tpu_torch.runner import run_simulation
@@ -429,7 +458,7 @@ def canonical_runs(torch, scns: dict, label: str, timed_formats,
                      f"{json.dumps(st_null.summary(scn.samp_freq))}")
         say(line)
     say(f"{label} launches: {json.dumps(launches)}")
-    return launches, rt
+    return launches, rt, stats
 
 
 def bound_ms(in_bytes: int, out_bytes: int, instructions: int,
@@ -639,7 +668,7 @@ def phase_nav_canonical(torch, scns: dict, dev, meshes) -> tuple:
 
     os.environ[NAV_SWITCH] = "1"
     try:
-        launches, rt = canonical_runs(
+        launches, rt, _ = canonical_runs(
             torch, scns, "phase 6b canonical, mask table", (16,),
             on_mismatch=locate, impl="cuda", device=dev)
         sharded = {label: canonical_runs(
@@ -957,6 +986,225 @@ def phase_receiver(torch, dev, card: str) -> dict:
     return {"synth_wire": launches, "max_abs_err": worst}
 
 
+def device_checksum(torch, packed) -> tuple[int, int]:
+    """(sum, nonzero) of one packed batch on its device, in the element
+    type each format's checksum reads (quantize.pack's output type)."""
+    return int(packed.sum(dtype=torch.int64)), int(torch.count_nonzero(packed))
+
+
+def max_diff(torch, got, want) -> int:
+    return max(int((g.long() - w.long()).abs().max()) for g, w in
+               zip(got, want))
+
+
+def phase_rows_canonical(torch, scn, dev, mesh) -> tuple[dict, dict]:
+    """Phase 13a: the canonical workload, planned by plan_batch in
+    100-epoch batches, through ops.synth.synth_batch (row kernel, planes)
+    and parallel.synth_rows_sharded on `mesh` (raw mode + chan reduction).
+    Every launch count is set to 0 just before each batch's two calls and
+    read just after; then the batch is held against the plain versions
+    (planes, and the raw mode on each chan shard's rows, whose launches are
+    not counted). Returns (path launches, max |kernel - plain| by
+    kernel)."""
+    from gps_sdr_sim_tpu_torch.ops import synth
+    from gps_sdr_sim_tpu_torch.ops.plan import plan_batch
+    from gps_sdr_sim_tpu_torch.ops.quantize import pack, wrap_int32
+    from gps_sdr_sim_tpu_torch.parallel import synth_rows_sharded
+    from gps_sdr_sim_tpu_torch.runner import iter_seg_batches
+
+    n = scn.iq_buff_size
+    goldens = golden_checksums()
+    sums = {key: [0, 0] for key in (16, 8, 1, "2x2")}
+    launches = dict.fromkeys(ROW_KERNELS, 0)
+    worst = dict.fromkeys(ROW_KERNELS, 0)
+    n_chan_dev = len(mesh.grid[0])
+    t = time.perf_counter()
+    batches = 0
+    for seg, e, e1 in iter_seg_batches(scn, 0, scn.n_output_epochs, 100):
+        db = plan_batch(seg, e, e1, n, scn.delt)
+        for k in synth.launch_counts:
+            synth.launch_counts[k] = 0
+        iq = synth.synth_batch(db, n, dev)
+        iq22 = torch.cat(synth_rows_sharded(db, n, mesh))
+        for k in ROW_KERNELS:
+            launches[k] += synth.launch_counts[k]
+        batches += 1
+
+        rows = synth.upload(synth.pack_rows(db), dev)
+        ca = synth.ca_device(db.ca_words, dev)
+        plain = torch.stack([p[:, :n] for p in synth.synth_rows_planes_ref(
+            rows, ca)], dim=-1)
+        worst["synth_rows_planes"] = max(worst["synth_rows_planes"],
+                                         max_diff(torch, [iq], [plain]))
+        c_loc = rows.shape[2] // n_chan_dev
+        for c in range(n_chan_dev):
+            part = (rows[:, :, c * c_loc:(c + 1) * c_loc].contiguous(),
+                    ca[c * c_loc:(c + 1) * c_loc].contiguous())
+            worst["synth_rows_raw"] = max(
+                worst["synth_rows_raw"],
+                max_diff(torch, synth.synth_rows_raw(*part),
+                         synth.synth_rows_raw_ref(*part)))
+        if not (torch.equal(iq, plain) and torch.equal(iq22, plain)):
+            raise AssertionError(f"row kernel != plain version at epochs "
+                                 f"[{e}, {e1}): synth_batch max |diff| "
+                                 f"{max_diff(torch, [iq], [plain])}, 2x2 "
+                                 f"{max_diff(torch, [iq22], [plain])}")
+        for key, samples, fmt in ((16, iq, 16), (8, iq, 8), (1, iq, 1),
+                                  ("2x2", iq22, 16)):
+            s, nz = device_checksum(torch, pack(samples, fmt))
+            sums[key][0] += s
+            sums[key][1] += nz
+    if worst["synth_rows_raw"]:
+        raise AssertionError(f"raw row kernel != plain version: max |diff| "
+                             f"{worst['synth_rows_raw']}")
+    got = {key: (wrap_int32(s), nz) for key, (s, nz) in sums.items()}
+    for key, fmt in ((16, 16), (8, 8), (1, 1), ("2x2", 16)):
+        if got[key] != goldens[fmt]:
+            raise AssertionError(f"phase 13a {key}: checksum {got[key]} != "
+                                 f"golden SC{fmt:02d} {goldens[fmt]}")
+    say(f"phase 13a rows canonical: {scn.n_output_epochs} epochs planned by "
+        f"plan_batch in {batches} batches of up to 100 epochs "
+        f"({time.perf_counter() - t:.2f} s), through synth_batch (row kernel, "
+        f"planes) and synth_rows_sharded on a {len(mesh.grid)}x{n_chan_dev} "
+        f"mesh of {dev} (raw + chan reduction): every batch = the plain "
+        f"version (max |diff| {json.dumps(worst)}); checksums (sum mod 2^32, "
+        f"nonzero) SC16 {got[16]}, SC08 {got[8]}, SC01 {got[1]}, 2x2 SC16 "
+        f"{got['2x2']} equal the goldens; launches {json.dumps(launches)}")
+    return launches, worst
+
+
+def phase_closed(torch, scns, dev, mesh, wire_stats) -> dict:
+    """Phase 13b: the closed impls through run_simulation. Returns the
+    real-time factors by label."""
+    launches, rt, stats = canonical_runs(
+        torch, scns, "phase 13b closed", (16,), impl="closed", device=dev)
+    _, rt22, stats22 = canonical_runs(
+        torch, scns, "phase 13b closed-sharded 2x2", (16,), formats=(16,),
+        impl="closed-sharded", device=dev, mesh=mesh)
+    if any(launches.values()):
+        raise AssertionError(f"impl closed launched a kernel: {launches}")
+    rt22 = rt22[16]
+    say(f"phase 13b closed: real-time factor SC16 {rt[16]:.1f}x, "
+        f"closed-sharded 2x2 SC16 {rt22:.1f}x (null-sink medians); "
+        f"plan_seconds (checksum passes, SC16/SC08/SC01): closed "
+        + "/".join(f"{stats[f].plan_seconds:.3f}" for f in FORMATS)
+        + ", closed-sharded 2x2 "
+        + f"{stats22[16].plan_seconds:.3f}, wire path (phase 6) "
+        + "/".join(f"{wire_stats[f].plan_seconds:.3f}" for f in FORMATS)
+        + " s (plan_batch rebases on the host; the closed form's launches "
+        "are enqueued inside the same timer)")
+    return {"closed": rt[16], "closed-sharded 2x2": rt22}
+
+
+def phase_dryrun(torch, dev) -> None:
+    """Phase 13c: the checks of the JAX package's dryrun_multichip
+    (__graft_entry__.py:84-135) on meshes of this card, 3 epochs of the
+    static scenario at 1 Msps."""
+    from gps_sdr_sim_tpu_torch.models.scenario import (
+        ScenarioConfig,
+        build_scenario,
+    )
+    from gps_sdr_sim_tpu_torch.ops import synth, synth_closed
+    from gps_sdr_sim_tpu_torch.ops.plan import plan_batch, plan_epochs
+    from gps_sdr_sim_tpu_torch.parallel import (
+        make_mesh,
+        synth_batch_sharded,
+        synth_epochs_sharded,
+        synth_rows_sharded,
+    )
+    from gps_sdr_sim_tpu_torch.testing import NAV, TOKYO
+
+    scn = build_scenario(ScenarioConfig(nav_file=str(NAV), static_xyz=TOKYO,
+                                        duration=0.4, samp_freq=1.0e6))
+    seg, n = scn.segments[0], scn.iq_buff_size
+    db = plan_batch(seg, 0, 3, n, scn.delt)
+    eb = plan_epochs(seg, 0, 3, scn.delt)
+    m11, m22 = make_mesh(1, 1, [dev]), make_mesh(2, 2, [dev] * 4)
+    closed = synth_closed.synth_batch(db, n, dev)
+    wire = torch.stack([p[:, :n] for p in synth.synth_wire_planes(
+        *synth.stage_epochs(eb, dev), n)], dim=-1)
+    checks = {
+        "closed-sharded 2x2 = closed": (synth_batch_sharded(db, n, m22),
+                                        closed),
+        "row-sharded 1x1 = closed": (synth_rows_sharded(db, n, m11), closed),
+        "row-sharded 2x2 = closed": (synth_rows_sharded(db, n, m22), closed),
+        "wire-sharded 2x2 = wire": (synth_epochs_sharded(eb, n, m22), wire),
+        "wire = closed": ([wire], closed),
+    }
+    for label, (pieces, want) in checks.items():
+        if not torch.equal(torch.cat(pieces), want):
+            raise AssertionError(f"phase 13c: {label} fails")
+    say(f"phase 13c dry-run checklist on {dev} (3 epochs, 1 Msps): "
+        + "; ".join(checks) + ": all hold, byte for byte")
+
+
+def phase_rows_timing(torch, dev, sass_ops) -> dict:
+    """Phase 13d: kernel and plain-version ms of each row mode on one
+    100-epoch 2.6 Msps batch at the widths phase 13a gives them (planes:
+    the 16 DeviceBatch channels; raw: one 8-channel chan shard of the 2x2
+    mesh), beside the bound; then the closed form's ms and peak memory on
+    the same batch. Returns {name: (ms, plain ms, bound, by)}."""
+    from gps_sdr_sim_tpu_torch.ops import synth, synth_closed
+    from gps_sdr_sim_tpu_torch.ops.plan import plan_batch
+    from gps_sdr_sim_tpu_torch.tools.card import time_ms
+
+    scn = canonical_scenario(16)
+    n = scn.iq_buff_size
+    db = plan_batch(scn.segments[0], 0, 100, n, scn.delt)
+    rows = synth.upload(synth.pack_rows(db), dev)
+    ca = synth.ca_device(db.ca_words, dev)
+    modes = (("synth_rows_planes", rows, ca, synth.synth_rows_planes,
+              synth.synth_rows_planes_ref),
+             ("synth_rows_raw", rows[:, :, :8].contiguous(),
+              ca[:8].contiguous(), synth.synth_rows_raw,
+              synth.synth_rows_raw_ref))
+    times = {}
+    for name, r, c, kernel, plain in modes:
+        got, want = kernel(r, c), plain(r, c)
+        if max_diff(torch, got, want):
+            raise AssertionError(f"{name} != plain version on the 100-epoch "
+                                 f"batch")
+        out_bytes = sum(a.numel() * a.element_size() for a in got)
+        del got, want
+        ms = time_ms(lambda: kernel(r, c), 20, dev)
+        plain_ms = time_ms(lambda: plain(r, c), 2, dev, warm=False)
+        # The data needs the (epoch, channel) pairs whose gain is not 0.
+        pairs = int((r[:, 0, :, 11] != 0).sum())
+        in_bytes = r.numel() * 4 + c.numel() * 4 + 2 * 512 * 4
+        bound, by = bound_ms(in_bytes, out_bytes, sass_ops[name], n, pairs)
+        times[name] = (ms, plain_ms, bound, by)
+        say(f"phase 13d timing {name}: {r.shape[0]} epochs x {n} samples x "
+            f"{r.shape[2]} channels ({pairs} (epoch, channel) pairs with "
+            f"gain), {r.numel() * 4} bytes of rows: kernel {ms:.4f} ms "
+            f"({r.shape[0] * n / ms / 1e6:.3f} Gsamples/s; best of 20), plain "
+            f"{plain_ms:.3f} ms, bound {bound:.3f} ms by {by} "
+            f"({sass_ops[name]} instructions per (sample, channel), "
+            f"{out_bytes} bytes out), kernel = plain bit for bit")
+    # The closed form on the same batch: what impl closed spends per batch.
+    tensors = synth_closed.batch_tensors(db, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    closed_ms = time_ms(lambda: synth_closed.synth_iq16(*tensors, n_out=n),
+                        3, dev)
+    say(f"phase 13d timing closed form (plain torch, impl closed): the same "
+        f"batch, all 16 channels, {closed_ms:.3f} ms (best of 3), peak "
+        f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return times
+
+
+def phase_scaling(dev) -> None:
+    """Phase 13e: tools/bench_scaling over meshes of 1, 2 and 4 entries,
+    each repeating this card."""
+    from gps_sdr_sim_tpu_torch.tools import bench_scaling
+
+    for impl in bench_scaling.IMPLS:
+        rows = bench_scaling.sweep(impl, dev, repeat_devices=[1, 2, 4])
+        say(f"phase 13e bench_scaling --impl {impl} --repeat-devices 1,2,4: "
+            + "; ".join(f"{r['devices']} entries ({r['distinct_devices']} "
+                        f"distinct) {r['value']} Msamples/s, efficiency "
+                        f"{r['efficiency_vs_1dev']}" for r in rows)
+            + f"; {rows[0]['device_name']}, {rows[0]['power_limit']}")
+
+
 def main() -> int:
     if not (ROOT / KERNEL_SOURCE).is_file():
         print(f"FAIL: {KERNEL_SOURCE} not found beside chip_smoke.py; run "
@@ -973,8 +1221,8 @@ def main() -> int:
     phase_goldens(dev)
     phase_cli()
     scns = {fmt: canonical_scenario(fmt) for fmt in FORMATS}
-    launches, rt = canonical_runs(torch, scns, "phase 6 canonical", FORMATS,
-                                  impl="cuda", device=dev)
+    launches, rt, wire_stats = canonical_runs(
+        torch, scns, "phase 6 canonical", FORMATS, impl="cuda", device=dev)
     from gps_sdr_sim_tpu_torch.parallel import make_mesh
 
     meshes = (("1x1", make_mesh(1, 1, [dev])),
@@ -991,6 +1239,12 @@ def main() -> int:
     vpu = phase_vpu_peak(sass_ops)
     phase_profile(dev)
     rx = phase_receiver(torch, dev, card)
+    row_launches, row_err = phase_rows_canonical(torch, scns[16], dev,
+                                                 meshes[1][1])
+    closed_rt = phase_closed(torch, scns, dev, meshes[1][1], wire_stats)
+    phase_dryrun(torch, dev)
+    row_times = phase_rows_timing(torch, dev, sass_ops)
+    phase_scaling(dev)
 
     # Each kernel's launches on the path that runs it.
     paths = {"synth_wire": launches["synth_wire"] + rx["synth_wire"],
@@ -1001,7 +1255,7 @@ def main() -> int:
                  nav_sharded["1x1"][0]["synth_wire_planes_nav"],
              "synth_wire_raw_nav":
                  nav_sharded["2x2"][0]["synth_wire_raw_nav"],
-             "vpu_peak": vpu["launches"]}
+             "vpu_peak": vpu["launches"], **row_launches}
     for name, count in paths.items():
         if count == 0:
             raise AssertionError(f"the main path launched no {name}")
@@ -1013,7 +1267,9 @@ def main() -> int:
         + ", ".join(f"{label} {r[1][16]:.1f}x" for label, r in
                     nav_sharded.items())
         + "; A/B b_over_a (mask table / walk) " + ", ".join(
-            f"{k} {r:.4f}" for k, r in ratios.items()) + f" on {card}")
+            f"{k} {r:.4f}" for k, r in ratios.items())
+        + "; DeviceBatch path " + ", ".join(
+            f"{k} {r:.1f}x" for k, r in closed_rt.items()) + f" on {card}")
     say(card)
     report = []
     for name, replaces in KERNELS.items():
@@ -1043,6 +1299,13 @@ def main() -> int:
                    "max_abs_err": vpu["max_abs_err"], "ms": vpu["ms"],
                    "plain_ms": vpu["plain_ms"], "bound_ms": vpu["bound_ms"],
                    "bound_by": vpu["bound_by"], "library_ms": None})
+    for name, replaces in ROW_KERNELS.items():
+        ms, plain_ms, bound, by = row_times[name]
+        report.append({"name": name, "route": "cuda",
+                       "source": KERNEL_SOURCE, "replaces": replaces,
+                       "launches": paths[name], "max_abs_err": row_err[name],
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "library_ms": None})
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

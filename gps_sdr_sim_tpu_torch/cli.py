@@ -3,8 +3,10 @@
 Counterpart of gps_sdr_sim_tpu/cli.py: the same getopt-compatible flags,
 validation messages, stderr order and output bytes, with synthesis on a
 CUDA device (--impl cuda, the default), the kernel's plain PyTorch version
-on any device (--impl torch), or either sharded over every local device of
---device's type (--impl cuda-sharded / torch-sharded). --shard-dir writes
+on any device (--impl torch), the closed form from a DeviceBatch in plain
+torch on any device (--impl closed, the counterpart of the JAX CLI's xla),
+or any of them sharded over every local device of --device's type (--impl
+cuda-sharded / torch-sharded / closed-sharded). --shard-dir writes
 time-shard files and a manifest (with --shards, --resume and --concat), and
 --multihost joins a torch.distributed (gloo) group whose processes write
 disjoint shards. --profile DIR writes a torch.profiler trace of the run (CPU
@@ -77,9 +79,10 @@ def _usage():
         "  -v               Show details about simulated channels\n"
         "PyTorch extensions:\n"
         "  --impl <name>       Synthesis: cuda (default; the CUDA kernel),\n"
-        "                      torch (its plain PyTorch version), or\n"
-        "                      cuda-sharded/torch-sharded (all local devices\n"
-        "                      of --device's type)\n"
+        "                      torch (its plain PyTorch version), closed\n"
+        "                      (the closed form in plain torch), or\n"
+        "                      cuda-sharded/torch-sharded/closed-sharded\n"
+        "                      (all local devices of --device's type)\n"
         "  --device <dev>      Torch device (default: cuda)\n"
         "  --carrier-phase <m> Carrier NCO: float (default) or fixed\n"
         "                      (the reference's FLOAT_CARR_PHASE=0 build)\n"

@@ -6,6 +6,29 @@
 // (the exact per-sub-block phase rebase). The rebase runs here in the block
 // prologue, so no per-sub-block parameter array ever reaches device memory.
 //
+// Input forms, one kernel each:
+//   * synth_wire_kernel reads the [B, C, 12] wire (the per-epoch form) and
+//     rebases each channel's phases to the block's sub-block in its
+//     prologue;
+//   * synth_rows_kernel reads one row per (epoch, sub-block, channel) that
+//     the host has already rebased (ops/synth.py pack_rows, from the
+//     DeviceBatch of plan_batch). It replaces the K1 row-parameter form:
+//     `_get_pallas_fn` with `uniform=False` (synth_pallas.py:508), its
+//     parameter rows from `pack_params` (:617), and its callers
+//     `synth_batch` (:654) and parallel/shard.py `synth_pallas_sharded`
+//     (:114, :224). Its output modes are kPlanes and kRaw, with the nav
+//     window walk (the mask table needs the wire's epoch-aligned form, as
+//     `tpe > 0` needs `uniform` on the TPU). What differs from the wire
+//     form: no rebase on the card, and the row parameters come from device
+//     memory, 48 bytes per (epoch, sub-block, channel) (9.75 MB for a
+//     100-epoch 2.6 Msps batch, a tenth of the planes it writes; the TPU's
+//     rows hold the same integers in 20-bit limbs, 128 bytes each). The
+//     rows carry all 16 DeviceBatch channels; the prologue keeps the ones
+//     whose gain is not 0 (a warp ballot), so inactive channels and padded
+//     epochs cost no loop trips. A zero gain adds exactly 0, so the sums
+//     are those of every channel. Like the wire form it is bounded by the
+//     integer issue rate: the loop body is the same accumulate_iq.
+//
 // Output modes (the template value MODE), one per K1 variant:
 //   * kPacked: quantized and packed into the final SC16/SC08/SC01 words
 //     (`fmt` 16/8/1; the single-device path);
@@ -72,6 +95,7 @@ namespace {
 constexpr int kSubblock = 2048;  // gps_sdr_sim_tpu_torch.constants.SUBBLOCK
 constexpr int kMaxChan = 16;     // gps_sdr_sim_tpu_torch.constants.MAX_CHAN
 constexpr int kWireLanes = 12;   // gps_sdr_sim_tpu_torch.ops.plan.WIRE_LANES
+constexpr int kRowLanes = 12;    // gps_sdr_sim_tpu_torch.ops.synth.ROW_LANES
 constexpr int kThreads = 128;
 constexpr int kCaLen = 1023;
 constexpr uint64_t kMask40 = (uint64_t(1) << 40) - 1;
@@ -99,7 +123,8 @@ __device__ __forceinline__ int shr_signfill(int x, int s) {
   return (s < 0 || s > 31) ? (x >> 31) : (x >> s);
 }
 
-__device__ __forceinline__ uint64_t wire_u64(const int32_t* w, int lane) {
+// The unsigned 64-bit value in lanes (lane, lane + 1), low word first.
+__device__ __forceinline__ uint64_t lanes_u64(const int32_t* w, int lane) {
   return uint64_t(uint32_t(w[lane])) | (uint64_t(uint32_t(w[lane + 1])) << 32);
 }
 
@@ -192,15 +217,54 @@ __host__ __device__ constexpr int words_per_subblock() {
          : kSubblock / (FMT == 16 ? 1 : (FMT == 8 ? 2 : 16));
 }
 
+// Row form: fill ch[] from this block's rows (one per channel, n_chan of
+// them), the channels whose gain is not 0 first, and their C/A words into
+// ca[]; the number of them goes to *n_live. Warp 0 reads the rows (n_chan
+// <= 16) and places each kept channel by a ballot. Ends with a barrier.
+__device__ __forceinline__ void load_rows(const int32_t* __restrict__ rows,
+                                          const int32_t* __restrict__ ca_words,
+                                          int n_chan, Chan* ch, uint32_t* ca,
+                                          int* chan_of, int* n_live) {
+  if (threadIdx.x < 32) {
+    const int c = threadIdx.x;
+    Chan p;
+    bool live = false;
+    if (c < n_chan) {
+      const int32_t* w = rows + size_t(c) * kRowLanes;
+      p.code_base = lanes_u64(w, 0);
+      p.code_step = lanes_u64(w, 2);
+      p.carr_base = lanes_u64(w, 4);
+      p.carr_step = lanes_u64(w, 6);
+      p.t_base = w[8];
+      p.m0r = w[9];
+      p.navbits = w[10];
+      p.gain = w[11];
+      live = p.gain != 0;
+    }
+    const uint32_t kept = __ballot_sync(0xFFFFFFFFu, live);
+    if (live) {
+      const int k = __popc(kept & ((1u << c) - 1u));
+      ch[k] = p;
+      chan_of[k] = c;
+    }
+    if (c == 0) *n_live = __popc(kept);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < *n_live * 32; i += kThreads) {
+    ca[i] = uint32_t(ca_words[chan_of[i >> 5] * 32 + (i & 31)]);
+  }
+}
+
+// One block: sub-block blockIdx.x of epoch blockIdx.y. ROWS: `params` are
+// the [B, SB, param_chans, 12] rows and every channel is summed; else the
+// [B, param_chans, 12] wire, of which the first n_chan channels are summed.
 // out: the packed words (kPacked) or the I plane; out_q: the Q plane
 // (kPlanes, kRaw; unused for kPacked).
-template <int MODE, int FMT, bool NAV>
-__global__ void __launch_bounds__(kThreads)
-synth_wire_kernel(const int32_t* __restrict__ wire,
-                  const int32_t* __restrict__ ca_words,
-                  const int32_t* __restrict__ table,
-                  int32_t* __restrict__ out, int32_t* __restrict__ out_q,
-                  int wire_chans, int n_chan) {
+template <int MODE, int FMT, bool NAV, bool ROWS>
+__device__ __forceinline__ void synth_block(
+    const int32_t* __restrict__ params, const int32_t* __restrict__ ca_words,
+    const int32_t* __restrict__ table, int32_t* __restrict__ out,
+    int32_t* __restrict__ out_q, int param_chans, int n_chan) {
   constexpr int kWords = words_per_subblock<MODE, FMT>();
 
   __shared__ int32_t sin_t[512];
@@ -208,6 +272,8 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
   __shared__ uint32_t ca[kMaxChan * 32];
   __shared__ uint32_t nav[kMaxChan * 4];
   __shared__ Chan ch[kMaxChan];
+  __shared__ int chan_of[kMaxChan];
+  __shared__ int n_live;
 
   const int sb = blockIdx.x;
   const int b = blockIdx.y;
@@ -217,44 +283,50 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
     sin_t[i] = table[i];
     cos_t[i] = table[512 + i];
   }
-  for (int i = threadIdx.x; i < n_chan * 32; i += kThreads) {
-    ca[i] = uint32_t(ca_words[i]);
-  }
-  if (threadIdx.x < n_chan) {
-    const int32_t* w =
-        wire + (size_t(b) * wire_chans + threadIdx.x) * kWireLanes;
-    const uint64_t k0 = uint64_t(sb) * kSubblock;
-    Chan p;
-    {
-      uint64_t f = wire_u64(w, 0), s = wire_u64(w, 2);
-      uint64_t lo = (f & 0xFFFF) + k0 * (s & 0xFFFF);
-      uint64_t hi = (f >> 16) + k0 * (s >> 16) + (lo >> 16);
-      p.code_base = hi & kMask40;
-      p.code_step = s >> 16;
-      p.t_base = int32_t(uint32_t(w[8]) + uint32_t(hi >> 40));
+  if constexpr (ROWS) {
+    load_rows(params + (size_t(b) * sub_blocks + sb) * param_chans * kRowLanes,
+              ca_words, n_chan, ch, ca, chan_of, &n_live);
+  } else {
+    for (int i = threadIdx.x; i < n_chan * 32; i += kThreads) {
+      ca[i] = uint32_t(ca_words[i]);
     }
-    {
-      uint64_t f = wire_u64(w, 4), s = wire_u64(w, 6);
-      uint64_t lo = (f & 0xFFFF) + k0 * (s & 0xFFFF);
-      uint64_t hi = (f >> 16) + k0 * (s >> 16) + (lo >> 16);
-      p.carr_base = hi & kMask40;
-      p.carr_step = s >> 16;
-    }
-    const int32_t m0 = w[9] & 0xFFFF, b0 = w[9] >> 16;
-    p.m0r = m0 - 20 * b0;
-    p.navbits = w[10];
-    p.gain = w[11];
-    ch[threadIdx.x] = p;
-  }
-  if constexpr (NAV) {
-    // Four threads per channel, one table word each (n_chan * 4 <= 64).
-    if (threadIdx.x < n_chan * 4) {
+    if (threadIdx.x < n_chan) {
       const int32_t* w =
-          wire + (size_t(b) * wire_chans + (threadIdx.x >> 2)) * kWireLanes;
-      nav[threadIdx.x] = nav_table_word(w, threadIdx.x & 3);
+          params + (size_t(b) * param_chans + threadIdx.x) * kWireLanes;
+      const uint64_t k0 = uint64_t(sb) * kSubblock;
+      Chan p;
+      {
+        uint64_t f = lanes_u64(w, 0), s = lanes_u64(w, 2);
+        uint64_t lo = (f & 0xFFFF) + k0 * (s & 0xFFFF);
+        uint64_t hi = (f >> 16) + k0 * (s >> 16) + (lo >> 16);
+        p.code_base = hi & kMask40;
+        p.code_step = s >> 16;
+        p.t_base = int32_t(uint32_t(w[8]) + uint32_t(hi >> 40));
+      }
+      {
+        uint64_t f = lanes_u64(w, 4), s = lanes_u64(w, 6);
+        uint64_t lo = (f & 0xFFFF) + k0 * (s & 0xFFFF);
+        uint64_t hi = (f >> 16) + k0 * (s >> 16) + (lo >> 16);
+        p.carr_base = hi & kMask40;
+        p.carr_step = s >> 16;
+      }
+      const int32_t m0 = w[9] & 0xFFFF, b0 = w[9] >> 16;
+      p.m0r = m0 - 20 * b0;
+      p.navbits = w[10];
+      p.gain = w[11];
+      ch[threadIdx.x] = p;
+    }
+    if constexpr (NAV) {
+      // Four threads per channel, one table word each (n_chan * 4 <= 64).
+      if (threadIdx.x < n_chan * 4) {
+        const int32_t* w = params + (size_t(b) * param_chans +
+                                     (threadIdx.x >> 2)) * kWireLanes;
+        nav[threadIdx.x] = nav_table_word(w, threadIdx.x & 3);
+      }
     }
   }
   __syncthreads();
+  if constexpr (ROWS) n_chan = n_live;
 
   const size_t row = (size_t(b) * sub_blocks + sb) * kWords;
   int32_t* o = out + row;
@@ -304,6 +376,29 @@ synth_wire_kernel(const int32_t* __restrict__ wire,
       o[wi] = int32_t(word);
     }
   }
+}
+
+template <int MODE, int FMT, bool NAV>
+__global__ void __launch_bounds__(kThreads)
+synth_wire_kernel(const int32_t* __restrict__ wire,
+                  const int32_t* __restrict__ ca_words,
+                  const int32_t* __restrict__ table,
+                  int32_t* __restrict__ out, int32_t* __restrict__ out_q,
+                  int wire_chans, int n_chan) {
+  synth_block<MODE, FMT, NAV, false>(wire, ca_words, table, out, out_q,
+                                     wire_chans, n_chan);
+}
+
+// MODE is kPlanes or kRaw.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+synth_rows_kernel(const int32_t* __restrict__ rows,
+                  const int32_t* __restrict__ ca_words,
+                  const int32_t* __restrict__ table,
+                  int32_t* __restrict__ out, int32_t* __restrict__ out_q,
+                  int n_chan) {
+  synth_block<MODE, 0, false, true>(rows, ca_words, table, out, out_q, n_chan,
+                                    n_chan);
 }
 
 template <int MODE, int FMT, bool NAV>
@@ -393,4 +488,30 @@ extern "C" int synth_wire_iq_launch(const int32_t* wire,
   return launch_nav<kRaw, 0>(wire, ca_words, table, oi, oq, n_epochs,
                              wire_chans, n_chan, sub_blocks, nav_gather,
                              stream);
+}
+
+// The row form (synth_rows_kernel): rows [n_epochs, sub_blocks, n_chan, 12]
+// int32 (ops/synth.py pack_rows), ca_words [n_chan, 32], table as above;
+// every channel is summed. quantize = 1 (kPlanes): out_i, out_q
+// [n_epochs, sub_blocks * 2048] int16; quantize = 0 (kRaw): the same
+// shape in int32.
+extern "C" int synth_rows_launch(const int32_t* rows, const int32_t* ca_words,
+                                 const int32_t* table, void* out_i,
+                                 void* out_q, int n_epochs, int sub_blocks,
+                                 int n_chan, int quantize, void* stream) {
+  if (bad_shape(n_epochs, n_chan, n_chan, sub_blocks)) {
+    return int(cudaErrorInvalidValue);
+  }
+  dim3 grid(sub_blocks, n_epochs);
+  int32_t* oi = static_cast<int32_t*>(out_i);
+  int32_t* oq = static_cast<int32_t*>(out_q);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (quantize) {
+    synth_rows_kernel<kPlanes>
+        <<<grid, kThreads, 0, st>>>(rows, ca_words, table, oi, oq, n_chan);
+  } else {
+    synth_rows_kernel<kRaw>
+        <<<grid, kThreads, 0, st>>>(rows, ca_words, table, oi, oq, n_chan);
+  }
+  return int(cudaGetLastError());
 }

@@ -48,11 +48,13 @@ PACK_DIV = {16: 1, 8: 2, 1: 16}
 
 _MASK40 = (1 << 40) - 1
 
-# Launches of the hand-written kernel, counted where the wrapper launches
-# it: one key per output mode, and one per mode of the nav-gather variant.
+# Launches of the hand-written kernels, counted where the wrapper launches
+# them: one key per output mode of the wire form, one per mode of its
+# nav-gather variant, and one per mode of the row form.
 launch_counts = {"synth_wire": 0, "synth_wire_planes": 0, "synth_wire_raw": 0,
                  "synth_wire_nav": 0, "synth_wire_planes_nav": 0,
-                 "synth_wire_raw_nav": 0}
+                 "synth_wire_raw_nav": 0, "synth_rows_planes": 0,
+                 "synth_rows_raw": 0}
 
 
 def nav_gather_enabled() -> bool:
@@ -118,11 +120,61 @@ def stage_epochs(eb, device) -> Staged:
     if sys.byteorder != "little":
         raise RuntimeError("the epoch wire is a little-endian byte view")
     device = torch.device(device)
-    host = torch.from_numpy(pack_epoch_wire(eb))
-    if device.type == "cuda":
+    return Staged(upload(pack_epoch_wire(eb), device),
+                  ca_device(eb.ca_words, device), max(eb.n_chan, 1))
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """Host array -> device tensor without blocking the host (from pinned
+    memory for a card)."""
+    host = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
         host = host.pin_memory()
-    wire = host.to(device, non_blocking=True)
-    return Staged(wire, ca_device(eb.ca_words, device), max(eb.n_chan, 1))
+    return host.to(device, non_blocking=True)
+
+
+# ---------------------------------------------------------------------------
+# The row form: one rebased parameter row per (epoch, sub-block, channel).
+# ---------------------------------------------------------------------------
+
+# Lanes of a row, the wire's positions with rebased values: 0-1 code_base
+# and 4-5 carr_base (bits [16, 56) of the sub-block's phase, units 2^-40),
+# 2-3 code_step and 6-7 carr_step (bits [16, 64) of the 2^56 step), each
+# little-endian (low word first); 8 t_base (whole chips since the epoch
+# start at the sub-block), 9 m0r (m0 - 20 * b0), 10 navbits, 11 gain.
+ROW_LANES = 12
+
+
+def _limbs_u64(limbs: np.ndarray) -> np.ndarray:
+    """[..., 3] 16-bit limbs (plan._limbs) -> int64."""
+    x = limbs.astype(np.int64)
+    return x[..., 0] | (x[..., 1] << 16) | (x[..., 2] << 32)
+
+
+def pack_rows(db) -> np.ndarray:
+    """DeviceBatch (ops.plan.plan_batch) -> [B, SB, C, ROW_LANES] int32 rows.
+
+    Counterpart of gps_sdr_sim_tpu/ops/synth_pallas.py:pack_params with the
+    port's own layout: the same exact integers, whole instead of in 20-bit
+    limbs; per-epoch fields repeat in every sub-block's row."""
+    if sys.byteorder != "little":
+        raise RuntimeError("the rows are a little-endian byte view")
+    B, SB, C = db.t_base.shape
+    rows = np.empty((B, SB, C, ROW_LANES), np.int32)
+
+    def put64(lane, v):  # int64 broadcastable to [B, SB, C]
+        v = np.ascontiguousarray(np.broadcast_to(v, (B, SB, C)))
+        rows[..., lane:lane + 2] = v.view(np.int32).reshape(B, SB, C, 2)
+
+    put64(0, _limbs_u64(db.code_p))
+    put64(2, _limbs_u64(db.code_s)[:, None])
+    put64(4, _limbs_u64(db.carr_p))
+    put64(6, _limbs_u64(db.carr_s)[:, None])
+    rows[..., 8] = db.t_base
+    rows[..., 9] = (db.m0 - 20 * db.b0)[:, None]
+    rows[..., 10] = db.navbits[:, None]
+    rows[..., 11] = db.gain[:, None]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -198,51 +250,64 @@ def nav_table_from_wire(wire: torch.Tensor) -> torch.Tensor:
     return nav_masks(u["m0"], u["b0"], u["navbits"])
 
 
-def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int,
-                   nav_gather: bool = False):
+def _channel_sums(f: dict, ca_words, n_chan: int, masks=None):
     """Channel sums (I, Q) over the first n_chan channels, int64
-    [B, SB, SUBBLOCK], before the int32 wrap. nav_gather: the nav bit of
-    code period M is lane M & 127 of the channel's nav_masks row (M = -1
-    reads lane 127) instead of the window walk."""
-    dev = wire.device
-    u = _unpack(wire)
-    if nav_gather:
-        masks = nav_table_from_wire(wire).reshape(
-            wire.shape[0], wire.shape[1], 128).to(torch.int64)
-    k0 = (torch.arange(sub_blocks, device=dev, dtype=torch.int64)
-          * SUBBLOCK)[None, :]                       # [1, SB]
+    [B, SB, SUBBLOCK], before the int32 wrap, from the per-(epoch,
+    sub-block, channel) parameters that the kernel's block prologue
+    fills: int64 fields of shape [B, SB, C] or [B, 1, C] (code_base,
+    carr_base: bits [16, 56) of the phase in units of 2^-40; code_step,
+    carr_step: bits [16, 64) of the step; t_base, m0r, navbits, gain).
+    masks: [B, C, 128] nav masks (the mask-table variant: the nav bit of
+    code period M is lane M & 127, M = -1 reading lane 127), else the
+    window walk."""
+    dev = ca_words.device
     r = torch.arange(SUBBLOCK, device=dev, dtype=torch.int64)
     tbl = trig_table(dev).to(torch.int64)
     ca = ca_words.to(torch.int64)
-    B = wire.shape[0]
-    iacc = torch.zeros((B, sub_blocks, SUBBLOCK), dtype=torch.int64,
-                       device=dev)
+    B, SB = f["code_base"].shape[:2]
+    iacc = torch.zeros((B, SB, SUBBLOCK), dtype=torch.int64, device=dev)
     qacc = torch.zeros_like(iacc)
     for c in range(n_chan):
         def col(name):
-            return u[name][:, c, None]               # [B, 1]
+            return f[name][:, :, c, None]            # [B, SB or 1, 1]
 
-        base, carry = rebase(col("code_f"), col("code_s"), k0)
-        step = (col("code_s") >> 16)[..., None]
-        T = _wrap32((col("t0") + carry)[..., None]
-                    + ((base[..., None] + r * step) >> 40))
+        T = _wrap32(col("t_base")
+                    + ((col("code_base") + r * col("code_step")) >> 40))
         M = floor_div(T, CA_SEQ_LEN)
         chip = T - CA_SEQ_LEN * M
         ca_bit = (ca[c][chip >> 5] >> (chip & 31)) & 1
-        if nav_gather:
+        if masks is not None:
             nav_bit = torch.gather(masks[:, c], 1, (M & 127).reshape(
                 B, -1)).reshape(M.shape) & 1
         else:
-            j = floor_div(col("m0r")[..., None] + M, 20)
-            nav_bit = shr_signfill(col("navbits")[..., None], j) & 1
-        cbase, _ = rebase(col("carr_f"), col("carr_s"), k0)
-        cstep = (col("carr_s") >> 16)[..., None]
-        idx = ((cbase[..., None] + r * cstep) >> 31) & 0x1FF
+            j = floor_div(col("m0r") + M, 20)
+            nav_bit = shr_signfill(col("navbits"), j) & 1
+        idx = ((col("carr_base") + r * col("carr_step")) >> 31) & 0x1FF
         sign = 1 - 2 * (ca_bit ^ nav_bit)
-        g = col("gain")[..., None] * sign
+        g = col("gain") * sign
         iacc += g * tbl[1][idx]
         qacc += g * tbl[0][idx]
     return iacc, qacc
+
+
+def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int,
+                   nav_gather: bool = False):
+    """Channel sums (I, Q) over the first n_chan channels of a wire, int64
+    [B, SB, SUBBLOCK], before the int32 wrap: the exact rebase to each
+    sub-block, then _channel_sums. nav_gather: the mask-table variant."""
+    u = {k: v[:, None, :] for k, v in _unpack(wire).items()}  # [B, 1, C]
+    k0 = (torch.arange(sub_blocks, device=wire.device, dtype=torch.int64)
+          * SUBBLOCK)[None, :, None]                 # [1, SB, 1]
+    code_base, carry = rebase(u["code_f"], u["code_s"], k0)
+    carr_base, _ = rebase(u["carr_f"], u["carr_s"], k0)
+    f = dict(code_base=code_base, code_step=u["code_s"] >> 16,
+             carr_base=carr_base, carr_step=u["carr_s"] >> 16,
+             t_base=u["t0"] + carry, m0r=u["m0r"], navbits=u["navbits"],
+             gain=u["gain"])
+    masks = (nav_table_from_wire(wire).reshape(
+        wire.shape[0], wire.shape[1], 128).to(torch.int64)
+        if nav_gather else None)
+    return _channel_sums(f, ca_words, n_chan, masks)
 
 
 def _quantize_acc(acc: torch.Tensor) -> torch.Tensor:
@@ -312,8 +377,38 @@ def synth_wire_raw_ref(wire: torch.Tensor, ca_words: torch.Tensor,
     return tuple(_wrap32(x).reshape(B, -1).to(torch.int32) for x in (i, q))
 
 
+def _row_sums(rows: torch.Tensor, ca_words: torch.Tensor):
+    """Channel sums (I, Q) of [B, SB, C, ROW_LANES] rows over all C
+    channels, int64 [B, SB, SUBBLOCK], before the int32 wrap."""
+    w = rows.to(torch.int64)
+
+    def u64(lane):
+        return (w[..., lane] & 0xFFFFFFFF) | (w[..., lane + 1] << 32)
+
+    f = dict(code_base=u64(0), code_step=u64(2), carr_base=u64(4),
+             carr_step=u64(6), t_base=w[..., 8], m0r=w[..., 9],
+             navbits=w[..., 10], gain=w[..., 11])
+    return _channel_sums(f, ca_words, rows.shape[2])
+
+
+def synth_rows_planes_ref(rows: torch.Tensor, ca_words: torch.Tensor):
+    """Plain version of the row kernel's planes mode: (I, Q), each
+    [B, SB * SUBBLOCK] int16, (acc + 64) >> 7 wrapped to int16."""
+    B = rows.shape[0]
+    return tuple(quantize_int16(x).reshape(B, -1)
+                 for x in _row_sums(rows, ca_words))
+
+
+def synth_rows_raw_ref(rows: torch.Tensor, ca_words: torch.Tensor):
+    """Plain version of the row kernel's raw mode: (I, Q), each
+    [B, SB * SUBBLOCK] int32 channel sums wrapped mod 2^32."""
+    B = rows.shape[0]
+    return tuple(_wrap32(x).reshape(B, -1).to(torch.int32)
+                 for x in _row_sums(rows, ca_words))
+
+
 # ---------------------------------------------------------------------------
-# The wrapper.
+# The wrappers.
 # ---------------------------------------------------------------------------
 
 
@@ -414,3 +509,74 @@ def synth_staged_packed(staged: Staged, n_out: int, fmt: int = 16,
     fn = synth_wire_ref if plain else synth_wire
     return fn(staged.wire, staged.ca_words, staged.n_chan, n_out, fmt,
               nav_gather)
+
+
+def _check_rows(rows: torch.Tensor, ca_words: torch.Tensor) -> None:
+    if rows.dtype != torch.int32 or ca_words.dtype != torch.int32:
+        raise TypeError("rows and ca_words must be int32")
+    if rows.dim() != 4 or rows.shape[3] != ROW_LANES:
+        raise ValueError(f"rows must be [B, SB, C, {ROW_LANES}], "
+                         f"got {tuple(rows.shape)}")
+    B, SB, C = rows.shape[:3]
+    if not 1 <= B <= 65535 or SB < 1:
+        raise ValueError(f"rows hold {B} epochs of {SB} sub-blocks; need "
+                         f"1 to 65535 epochs and at least one sub-block")
+    if not 1 <= C <= MAX_CHAN:
+        raise ValueError(f"{C} channels outside [1, {MAX_CHAN}]")
+    if tuple(ca_words.shape) != (C, 32):
+        raise ValueError(f"ca_words must be [{C}, 32], "
+                         f"got {tuple(ca_words.shape)}")
+    if rows.device != ca_words.device:
+        raise ValueError("rows and ca_words are on different devices")
+    if not (rows.is_contiguous() and ca_words.is_contiguous()):
+        raise ValueError("rows and ca_words must be contiguous")
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {rows.device}")
+
+
+def _synth_rows(rows, ca_words, quantize: bool):
+    _check_rows(rows, ca_words)
+    if rows.device.type == "cpu":
+        ref = synth_rows_planes_ref if quantize else synth_rows_raw_ref
+        return ref(rows, ca_words)
+    from gps_sdr_sim_tpu_torch.ops import synth_cuda
+
+    B, SB = rows.shape[:2]
+    dtype = torch.int16 if quantize else torch.int32
+    out_i, out_q = (torch.empty((B, SB * SUBBLOCK), dtype=dtype,
+                                device=rows.device) for _ in range(2))
+    synth_cuda.launch_rows(rows, ca_words, trig_table(rows.device), out_i,
+                           out_q, quantize)
+    launch_counts["synth_rows_planes" if quantize else "synth_rows_raw"] += 1
+    return out_i, out_q
+
+
+def synth_rows_planes(rows: torch.Tensor, ca_words: torch.Tensor):
+    """[B, SB, C, ROW_LANES] rows -> (I, Q), each [B, SB * SUBBLOCK] int16,
+    the sum of all C channels after (acc + 64) >> 7: the Pallas kernel's
+    row-parameter form (uniform=False), quantize=True.
+
+    CUDA tensors go through the hand-written kernel (a build or launch
+    failure raises); CPU tensors through synth_rows_planes_ref."""
+    return _synth_rows(rows, ca_words, True)
+
+
+def synth_rows_raw(rows: torch.Tensor, ca_words: torch.Tensor):
+    """[B, SB, C, ROW_LANES] rows -> (I, Q), each [B, SB * SUBBLOCK] int32
+    channel sums before (acc + 64) >> 7: the row-parameter form with
+    quantize=False, a chan shard's partial sums.
+
+    CUDA tensors go through the hand-written kernel (a build or launch
+    failure raises); CPU tensors through synth_rows_raw_ref."""
+    return _synth_rows(rows, ca_words, False)
+
+
+def synth_batch(db, n_out: int, device) -> torch.Tensor:
+    """DeviceBatch -> [B, n_out, 2] int16 on `device` through the row
+    kernel's planes mode: the counterpart of
+    gps_sdr_sim_tpu/ops/synth_pallas.py:synth_batch. The rows go up pinned
+    and without blocking the host."""
+    device = torch.device(device)
+    i16, q16 = synth_rows_planes(upload(pack_rows(db), device),
+                                 ca_device(db.ca_words, device))
+    return torch.stack([i16[:, :n_out], q16[:, :n_out]], dim=-1)

@@ -1,5 +1,5 @@
 """Build the port's CUDA sources, and bind csrc/synth.cu (the hand-written
-Hopper synthesis kernel).
+Hopper synthesis kernels: the wire form and the row form).
 
 `build(source)` compiles one source of csrc/ with nvcc for sm_90a into a
 shared library with a plain C interface, at first use, into
@@ -127,6 +127,10 @@ def load():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.synth_rows_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -178,3 +182,18 @@ def launch_iq(wire: torch.Tensor, ca_words: torch.Tensor, table: torch.Tensor,
          ca_words.data_ptr(), table.data_ptr(), out_i.data_ptr(),
          out_q.data_ptr(), wire.shape[0], wire.shape[1], n_chan, sub_blocks,
          int(quantize), int(nav_gather))
+
+
+def launch_rows(rows: torch.Tensor, ca_words: torch.Tensor,
+                table: torch.Tensor, out_i: torch.Tensor, out_q: torch.Tensor,
+                quantize: bool) -> None:
+    """Enqueue the row-form kernel on [B, SB, C, 12] rows: int16 planes
+    after (acc + 64) >> 7 (quantize=True) or the raw int32 channel sums.
+
+    The caller (ops.synth.synth_rows_planes / synth_rows_raw) has checked
+    the rows and allocated both planes."""
+    _check_devices(rows, ca_words, table, out_i, out_q)
+    B, SB, C = rows.shape[:3]
+    call(load(), "synth_rows_launch", rows.device, rows.data_ptr(),
+         ca_words.data_ptr(), table.data_ptr(), out_i.data_ptr(),
+         out_q.data_ptr(), B, SB, C, int(quantize))

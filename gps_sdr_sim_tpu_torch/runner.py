@@ -9,10 +9,14 @@ order, so the byte stream is the reference's sequential one. Batches are
 padded to `batch_epochs` with gain-0 epochs, and only the valid epochs are
 written.
 
-The sharded impls run parallel/shard.py over a mesh of devices: its
-[B, n_out, 2] samples, one piece per time shard, are packed into the
-format's bytes on their devices (ops/quantize.pack), and each piece is read
-back with its own event; a batch is written once every piece has landed.
+The closed impls plan each batch as a DeviceBatch instead (plan_batch: the
+per-sub-block rebase on the host) and synthesize it with the closed form in
+plain torch (ops/synth_closed.py), the counterpart of the JAX package's
+xla impls. The sharded impls run parallel/shard.py over a mesh of devices.
+Both give [B, n_out, 2] samples (one piece per time shard when sharded),
+packed into the format's bytes on their devices (ops/quantize.pack); each
+piece is read back with its own event, and a batch is written once every
+piece has landed.
 """
 
 from __future__ import annotations
@@ -27,14 +31,24 @@ import numpy as np
 import torch
 
 from gps_sdr_sim_tpu_torch.models.scenario import Scenario
-from gps_sdr_sim_tpu_torch.ops.plan import pad_epochs, plan_epochs
-from gps_sdr_sim_tpu_torch.ops import synth
+from gps_sdr_sim_tpu_torch.ops.plan import (
+    DeviceBatch,
+    pad_epoch_axis,
+    pad_epochs,
+    plan_batch,
+    plan_epochs,
+)
+from gps_sdr_sim_tpu_torch.ops import synth, synth_closed
 from gps_sdr_sim_tpu_torch.ops.quantize import pack, words_to_bytes
 
 # cuda / torch: the packed-word kernel or its plain version on one device;
-# cuda-sharded / torch-sharded: the counterparts of the JAX package's
-# pallas-sharded / xla-sharded, over a mesh (parallel/shard.py).
-IMPLS = ("cuda", "torch", "cuda-sharded", "torch-sharded")
+# cuda-sharded / torch-sharded: the same over a mesh (parallel/shard.py),
+# the counterparts of the JAX package's pallas / pallas-sharded;
+# closed / closed-sharded: the closed form in plain torch from a
+# DeviceBatch, on one device or over a mesh, the counterparts of its xla /
+# xla-sharded.
+IMPLS = ("cuda", "torch", "cuda-sharded", "torch-sharded", "closed",
+         "closed-sharded")
 
 # Batches in flight before the writer blocks on the oldest.
 _QUEUE_DEPTH = 4
@@ -87,6 +101,11 @@ def iter_seg_batches(scn: Scenario, lo: int, hi: int, batch_epochs: int):
     return iter_segment_batches(scn.segments, lo, hi, batch_epochs)
 
 
+def _pad_batch(db: DeviceBatch, target_b: int) -> DeviceBatch:
+    """Pad a batch to `target_b` epochs (zero gain => silent padding)."""
+    return pad_epoch_axis(db, target_b)
+
+
 def resolve_device(impl: str, device) -> torch.device:
     """The device a run of `impl` uses; raises ValueError or RuntimeError
     if it cannot run there (no silent fallback to the CPU)."""
@@ -122,25 +141,30 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
                     mesh=None) -> RunStats:
     """Synthesize output epochs [lo, hi) of `scn` into `fp`.
 
-    impl: "cuda" (the hand-written kernel; needs a CUDA device) or "torch"
-    (the kernel's plain PyTorch version, on `device`); "cuda-sharded" or
-    "torch-sharded" run the same over `mesh` (parallel.mesh.Mesh; default
-    auto_mesh over every local device of `device`'s type). The kernel's
-    nav mask-table variant runs when GPS_SDR_SIM_NAV_GATHER=1 at this
-    call (ops.synth.nav_gather_enabled)."""
+    impl: "cuda" (the hand-written kernel; needs a CUDA device), "torch"
+    (the kernel's plain PyTorch version, on `device`) or "closed" (the
+    closed form from a DeviceBatch, plain torch on `device`);
+    "cuda-sharded", "torch-sharded" or "closed-sharded" run the same over
+    `mesh` (parallel.mesh.Mesh; default auto_mesh over every local device
+    of `device`'s type). The kernel's nav mask-table variant runs when
+    GPS_SDR_SIM_NAV_GATHER=1 at this call (ops.synth.nav_gather_enabled)."""
     if log is None:
         log = lambda s: print(s, end="", file=sys.stderr, flush=True)
     device = resolve_device(impl, device)
     sharded = impl.endswith("-sharded")
     plain = impl.startswith("torch")
+    closed = impl.startswith("closed")
     if sharded:
         from gps_sdr_sim_tpu_torch.parallel.mesh import auto_mesh
-        from gps_sdr_sim_tpu_torch.parallel.shard import synth_epochs_sharded
+        from gps_sdr_sim_tpu_torch.parallel.shard import (
+            synth_batch_sharded,
+            synth_epochs_sharded,
+        )
 
         if mesh is None:
             mesh = auto_mesh(device=device)
-        if not plain and any(d.type != "cuda" for row in mesh.grid
-                             for d in row):
+        if impl.startswith("cuda") and any(
+                d.type != "cuda" for row in mesh.grid for d in row):
             raise ValueError(f"impl '{impl}' runs the CUDA kernel and needs "
                              f"a mesh of CUDA devices")
     n = scn.iq_buff_size
@@ -164,7 +188,7 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
             if len(rows) == 0:
                 break
             valid -= len(rows)
-            if not sharded:
+            if not (sharded or closed):  # the kernel's output words
                 rows = words_to_bytes(rows, n, fmt)
             fp.write(np.ascontiguousarray(rows).reshape(-1).view(np.uint8)
                      .data)
@@ -173,13 +197,21 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
 
     for seg, e, e1 in iter_seg_batches(scn, lo, hi, batch_epochs):
         t_plan = time.time()
-        eb = pad_epochs(plan_epochs(seg, e, e1, scn.delt), batch_epochs)
-        if sharded:
-            outs = [pack(p, fmt) for p in synth_epochs_sharded(
-                eb, n, mesh, plain, nav_gather)]
+        if closed:
+            db = _pad_batch(plan_batch(seg, e, e1, n, scn.delt),
+                            batch_epochs)
+            iq = (synth_batch_sharded(db, n, mesh) if sharded
+                  else [synth_closed.synth_batch(db, n, device)])
+            outs = [pack(p, fmt) for p in iq]
         else:
-            outs = [synth.synth_staged_packed(synth.stage_epochs(eb, device),
-                                              n, fmt, plain, nav_gather)]
+            eb = pad_epochs(plan_epochs(seg, e, e1, scn.delt), batch_epochs)
+            if sharded:
+                outs = [pack(p, fmt) for p in synth_epochs_sharded(
+                    eb, n, mesh, plain, nav_gather)]
+            else:
+                outs = [synth.synth_staged_packed(
+                    synth.stage_epochs(eb, device), n, fmt, plain,
+                    nav_gather)]
         pieces = [fetch_async(o) if o.device.type == "cuda" else (o, None)
                   for o in outs]
         stats.plan_seconds += time.time() - t_plan

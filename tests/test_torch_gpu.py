@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, the
-sharded path on the card, and the receiver on the card against the CPU.
+sharded paths on the card, and the receiver on the card against the CPU.
 
 Needs a CUDA device (a CUDA kernel has no CPU mode), so it skips here.
 This file imports no JAX, so on a machine without JAX it runs as
@@ -8,11 +8,14 @@ This file imports no JAX, so on a machine without JAX it runs as
 
 import io
 
+import numpy as np
 import pytest
 import torch
 
 from gps_sdr_sim_tpu_torch.models.scenario import ScenarioConfig, build_scenario
-from gps_sdr_sim_tpu_torch.ops import synth
+from gps_sdr_sim_tpu_torch.ops import synth, synth_closed
+from gps_sdr_sim_tpu_torch.ops.plan import plan_batch
+from gps_sdr_sim_tpu_torch.parallel import synth_rows_sharded
 from gps_sdr_sim_tpu_torch.parallel.mesh import make_mesh
 from gps_sdr_sim_tpu_torch.runner import run_simulation
 from gps_sdr_sim_tpu_torch.testing import (
@@ -181,3 +184,60 @@ def test_receiver_card_matches_cpu():
         pytest.skip("needs a CUDA device")
     x = rx_capture(rx_scenario(2.0), "cuda", "cuda")
     assert receiver_devices_agree(x, "cuda")["channels"] == 13
+
+
+def _golden_batch(name, n_epochs=3):
+    scn = golden_scenario(name)
+    return scn, plan_batch(scn.segments[0], 0, n_epochs, scn.iq_buff_size,
+                           scn.delt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["planes", "raw"])
+def test_row_kernel_matches_plain_version(mode):
+    """The row form, word for word, on real rows (1 Msps: a code step above
+    one chip per sample; highalt16: gains above 131) and on the same rows
+    with seeded gains up to 400, a third of them 0 (which the prologue
+    drops), and t_base = -1 at the first sub-block (T = -1, mg = -1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    fn = getattr(synth, f"synth_rows_{mode}")
+    ref = getattr(synth, f"synth_rows_{mode}_ref")
+    rng = np.random.default_rng(5)
+    for name in ("static16", "highalt16"):
+        _, db = _golden_batch(name)
+        rows = synth.pack_rows(db)
+        mixed = rows.copy()
+        gain = rng.integers(1, 401, mixed.shape[:3])
+        mixed[..., 11] = np.where(rng.random(gain.shape) < 0.33, 0, gain)
+        first = mixed[:, 0, :, 8]
+        mixed[:, 0, :, 8] = np.where(rng.random(first.shape) < 0.4, -1,
+                                     first)
+        ca = torch.from_numpy(db.ca_words).to(dev)
+        for r in (rows, mixed):
+            r = torch.from_numpy(r).to(dev)
+            before = synth.launch_counts[f"synth_rows_{mode}"]
+            got = fn(r, ca)
+            assert synth.launch_counts[f"synth_rows_{mode}"] == before + 1
+            want = ref(r, ca)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cards", [1, 4])
+def test_rows_sharded_2x2_matches_one_card(cards):
+    """synth_rows_sharded on a 2x2 mesh (raw row kernel, chan reduction
+    across cards when cards=4) = the row kernel's synth_batch on one card
+    = the closed form on the CPU."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    scn, db = _golden_batch("circle16", n_epochs=3)
+    n = scn.iq_buff_size
+    devs = [torch.device("cuda", i % cards) for i in range(4)]
+    got = torch.cat([p.cpu() for p in synth_rows_sharded(
+        db, n, make_mesh(2, 2, devs))])
+    assert torch.equal(got, synth.synth_batch(db, n, "cuda:0").cpu())
+    assert torch.equal(got, synth_closed.synth_batch(db, n, "cpu"))

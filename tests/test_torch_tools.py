@@ -6,11 +6,20 @@
 - tools/ab_kernel: the --cpu plumbing at a tiny batch, and the refusal of
   the JAX harness's TPU-only variants;
 - --profile: a trace file appears, the bytes equal a run without the flag,
-  and stderr's last line equals the JAX CLI's."""
+  and stderr's last line equals the JAX CLI's;
+- tools/bench_scaling: one row per mesh with the device fields (closed on
+  meshes that repeat the CPU device), the refusal of the CUDA impls off a
+  card, and a 1,2-process --multihost sweep on the CPU;
+- utils/playerfmt: the cases of tests/test_tools.py against the port's
+  copy of the ctypes binding (1-bit expansion of the port's SC01 packing,
+  rescaling, the SDR option clamps)."""
 
 import importlib.util
 import json
 import os
+import shutil
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,9 +31,17 @@ from jax.experimental.pallas import tpu as pltpu
 
 from gps_sdr_sim_tpu.cli import main as jax_main
 from gps_sdr_sim_tpu_torch.cli import main
+from gps_sdr_sim_tpu.utils import playerfmt as jax_playerfmt
 from gps_sdr_sim_tpu_torch.ops import synth_cuda
+from gps_sdr_sim_tpu_torch.ops.quantize import pack_sc01
 from gps_sdr_sim_tpu_torch.testing import ROOT
-from gps_sdr_sim_tpu_torch.tools import ab_kernel, card, vpu_peak
+from gps_sdr_sim_tpu_torch.tools import (
+    ab_kernel,
+    bench_scaling,
+    card,
+    vpu_peak,
+)
+from gps_sdr_sim_tpu_torch.utils import playerfmt
 
 from test_torch_runner import STATIC
 
@@ -180,3 +197,155 @@ def test_profile_writes_trace(tmp_path, capsys):
                               str(prof)]) == 0
     assert err[-1] == capsys.readouterr().err.splitlines()[-1] == \
         f"profiler trace written to {prof}"
+
+
+# ---------------------------------------------------------------------------
+# tools/bench_scaling.
+# ---------------------------------------------------------------------------
+
+_TINY = ["--epochs-per-device", "1", "--samp-freq", "1e6", "--repeats", "1"]
+
+
+@pytest.fixture
+def one_torch_thread(monkeypatch):
+    """torch on one thread, here and in the processes a test starts: the
+    suite runs several test processes on a few cores, and these small ops
+    stall on contended intra-op threads (ROADMAP C3)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rows(capsys):
+    return [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_bench_scaling_closed_on_the_cpu(capsys):
+    """Meshes of 1, 2 and 4 entries that repeat the CPU device, a chan
+    axis of 2 from 2 entries on: one JSON row each."""
+    assert bench_scaling.main(["--device", "cpu", "--impl", "closed",
+                               "--repeat-devices", "1,2,4", "--chan-axis",
+                               "2"] + _TINY) == 0
+    rows = _rows(capsys)
+    assert [r["mesh"] for r in rows] == [
+        [["time", 1], ["chan", 1]], [["time", 1], ["chan", 2]],
+        [["time", 2], ["chan", 2]]]
+    assert [r["devices"] for r in rows] == [r["epochs"] for r in rows] == \
+        [1, 2, 4]
+    assert rows[0]["efficiency_vs_1dev"] == 1.0
+    for r in rows:
+        assert r["metric"] == "scaling_samples_per_sec" and r["value"] > 0
+        assert r["distinct_devices"] == 1
+        assert (r["device_type"], r["device_name"], r["device_count"],
+                r["power_limit"]) == ("cpu", None, 1, None)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda-wire"])
+def test_bench_scaling_refuses_cuda_impls_on_the_cpu(impl):
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        bench_scaling.main(["--device", "cpu", "--impl", impl] + _TINY)
+
+
+def test_bench_scaling_exits_non_zero_without_a_card():
+    """As a program: --impl cuda on the CPU, and --impl closed on the
+    default cuda device of a machine that has none, exit non-zero."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for extra in (["--device", "cpu", "--impl", "cuda"],
+                  ["--impl", "closed"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "gps_sdr_sim_tpu_torch.tools.bench_scaling",
+             *extra, *_TINY], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode != 0 and proc.stdout == ""
+        assert ("needs a CUDA device" in proc.stderr
+                or "no CUDA device is available" in proc.stderr)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_bench_scaling_multihost_on_the_cpu(capsys):
+    assert bench_scaling.main(["--multihost", "1,2", "--device", "cpu",
+                               "--duration", "0.3"]) == 0
+    rows = _rows(capsys)
+    assert [r["processes"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["metric"] == "multihost_scaling_samples_per_sec"
+        assert r["impl"] == "closed" and r["device_type"] == "cpu"
+        assert 0 < r["synth_wall_s"] < r["wall_s"]
+    assert rows[0]["efficiency_vs_1proc"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# utils/playerfmt.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def port_playerfmt(tmp_path_factory):
+    """The port's binding on a library built from tools/'s sources into a
+    directory of this module's own (tests/test_tools.py builds tools/ in
+    place, perhaps at the same time)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler available")
+    lib = tmp_path_factory.mktemp("playerfmt") / "libplayerfmt.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-fPIC", "-pthread", "-shared",
+                    "-o", str(lib), "playerfmt.cpp", "sdr_backends.cpp",
+                    "bytering.cpp"], cwd=ROOT / "tools", check=True,
+                   capture_output=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(playerfmt, "_LIB_PATH", lib)
+        mp.setattr(playerfmt, "_lib", None)
+        yield playerfmt
+
+
+def test_playerfmt_binds_the_tools_library():
+    assert playerfmt._LIB_PATH == jax_playerfmt._LIB_PATH == \
+        ROOT / "tools" / "libplayerfmt.so"
+
+
+def test_playerfmt_expand_1bit_roundtrip(port_playerfmt):
+    """The C++ 1-bit expansion inverts the port's SC01 packing."""
+    rng = np.random.default_rng(7)
+    iq = rng.integers(-2000, 2000, size=(1, 256, 2), dtype=np.int16)
+    iq[iq == 0] = 1  # sign(0) packs as negative; keep the test unambiguous
+    packed = pack_sc01(torch.from_numpy(iq)).numpy().reshape(-1)
+    expanded = port_playerfmt.expand_1bit(packed, amplitude=1000)
+    expect = np.where(iq.reshape(-1) > 0, 1000, -1000).astype(np.int16)
+    np.testing.assert_array_equal(expanded, expect)
+
+
+def test_playerfmt_rescale_matches_generator(port_playerfmt):
+    v = np.array([-32768, -4096, -17, -1, 0, 1, 15, 4095, 32767],
+                 dtype=np.int16)
+    np.testing.assert_array_equal(port_playerfmt.shift16(v, 4), v >> 4)
+    np.testing.assert_array_equal(port_playerfmt.narrow16to8(v, 4),
+                                  (v >> 4).astype(np.int8))
+    b = np.array([-128, -1, 0, 1, 127], dtype=np.int8)
+    np.testing.assert_array_equal(port_playerfmt.widen8(b, 4),
+                                  b.astype(np.int16) << 4)
+
+
+def test_playerfmt_sdr_option_clamps(port_playerfmt):
+    pf = port_playerfmt
+    assert pf.lime_clamp_gain(-0.5) == 0.0
+    assert pf.lime_clamp_gain(0.25) == 0.25
+    assert pf.lime_clamp_gain(1.5) == 1.0
+    assert pf.lime_clamp_dynamic(4096) == 2047
+    assert pf.lime_clamp_dynamic(1000) == 1000
+    assert pf.lime_clamp_channel(1, 2) == 1
+    assert pf.lime_clamp_channel(5, 2) == 0
+    assert pf.lime_clamp_channel(-1, 2) == 0
+    assert pf.pluto_clamp_atten(5.0) == 0.0
+    assert pf.pluto_clamp_atten(-20.0) == -20.0
+    assert pf.pluto_clamp_atten(-100.0) == -80.0
+    assert pf.pluto_clamp_bw(0.5e6) == 1.0e6
+    assert pf.pluto_clamp_bw(3.0e6) == 3.0e6
+    assert pf.pluto_clamp_bw(9.0e6) == 5.0e6
+    assert pf.hackrf_filter_bw(2600000) == 2500000
+    assert pf.hackrf_filter_bw(1750000) == 1750000
+    assert pf.hackrf_filter_bw(10000000) == 9000000
