@@ -5,9 +5,10 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-An import hook installed first makes any import of jax or of the JAX
-package (gps_sdr_sim_tpu) raise, here and in the CLI processes it starts,
-so the run shows that the port stands alone. Phases, each printing one line
+An import hook installed first makes any import of jax, of the JAX
+package (gps_sdr_sim_tpu) or of the repository's root tools and
+__graft_entry__ raise, here and in the CLI processes it starts, so the run
+shows that the port stands alone. Phases, each printing one line
 of findings (any failure raises and exits non-zero):
 
  1. environment: card name and power limit, CUDA, nvcc, triton;
@@ -72,12 +73,26 @@ of findings (any failure raises and exits non-zero):
     SC16/SC08/SC01 checksums (the 2x2 mesh's SC16); (b) run_simulation with
     impl="closed" (three formats, real-time factor of SC16) and
     "closed-sharded" on the 2x2 mesh (SC16) give them too, with
-    plan_seconds beside the wire path's; (c) the JAX package's multi-chip
-    dry-run checklist on this card: closed-sharded = closed, row-sharded on
-    1x1 and 2x2 = closed, wire-sharded = wire; (d) each row mode's kernel
-    and plain-version time on one 100-epoch batch beside its bound; (e) the
-    tools/bench_scaling sweep of the three impls over meshes of 1, 2 and 4
-    entries of this card.
+    plan_seconds beside the wire path's; (c) the multi-chip dry run
+    (gps_sdr_sim_tpu_torch.entry.dryrun_multichip) on a mesh of four
+    entries of this card: closed-sharded 2x2 = closed, row-sharded 4x1 and
+    2x2 = closed, wire-sharded 2x2 = wire, wire = closed; (d) each row
+    mode's kernel and plain-version time on one 100-epoch batch beside its
+    bound; (e) the tools/bench_scaling sweep of the three impls over meshes
+    of 1, 2 and 4 entries of this card;
+ 14. the full 86,400 s day (static Tokyo, 2.6 Msps, SC16, 300-epoch
+    batches) through the day-run tool's synth phase
+    (gps_sdr_sim_tpu_torch.tools.dayrun.synth_day: the streaming planner on
+    a producer thread, the packed kernel and an on-card checksum per batch,
+    the sampled blocks read back on a collector thread): the wrapped
+    checksum, the least nonzero count of a batch and the sha256 of all 33
+    sampled blocks must equal those recorded in DAYRUN_r05.json (the run
+    whose blocks were held to the C reference); every batch that holds a
+    sampled block is synthesized again by the plain version on the card,
+    whose words must equal the kernel's and whose blocks must give the same
+    sha256. Prints wall, plan_s, the real-time factor, the throughput
+    timeline's min/median/max and the kernel's busy share (kernel time by
+    CUDA events over wall).
 
 The line before the last is the kernel report; the last line is
 {"ok": true, "device": {...}}.
@@ -105,7 +120,9 @@ IMPORT_HOOK = """
 import importlib.abc, sys
 class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "gps_sdr_sim_tpu"):
+        if name.split(".")[0] in ("jax", "gps_sdr_sim_tpu", "tools",
+                                  "__graft_entry__", "bench",
+                                  "bench_scaling", "deepcheck", "dayrun"):
             raise ImportError(f"the port imported {name}")
 sys.meta_path.insert(0, _NoJax())
 """
@@ -1096,46 +1113,16 @@ def phase_closed(torch, scns, dev, mesh, wire_stats) -> dict:
     return {"closed": rt[16], "closed-sharded 2x2": rt22}
 
 
-def phase_dryrun(torch, dev) -> None:
-    """Phase 13c: the checks of the JAX package's dryrun_multichip
-    (__graft_entry__.py:84-135) on meshes of this card, 3 epochs of the
-    static scenario at 1 Msps."""
-    from gps_sdr_sim_tpu_torch.models.scenario import (
-        ScenarioConfig,
-        build_scenario,
-    )
-    from gps_sdr_sim_tpu_torch.ops import synth, synth_closed
-    from gps_sdr_sim_tpu_torch.ops.plan import plan_batch, plan_epochs
-    from gps_sdr_sim_tpu_torch.parallel import (
-        make_mesh,
-        synth_batch_sharded,
-        synth_epochs_sharded,
-        synth_rows_sharded,
-    )
-    from gps_sdr_sim_tpu_torch.testing import NAV, TOKYO
+def phase_dryrun(dev) -> None:
+    """Phase 13c: entry.dryrun_multichip on a mesh of four entries of this
+    card (the JAX package's __graft_entry__ checklist)."""
+    from gps_sdr_sim_tpu_torch.entry import dryrun_multichip
 
-    scn = build_scenario(ScenarioConfig(nav_file=str(NAV), static_xyz=TOKYO,
-                                        duration=0.4, samp_freq=1.0e6))
-    seg, n = scn.segments[0], scn.iq_buff_size
-    db = plan_batch(seg, 0, 3, n, scn.delt)
-    eb = plan_epochs(seg, 0, 3, scn.delt)
-    m11, m22 = make_mesh(1, 1, [dev]), make_mesh(2, 2, [dev] * 4)
-    closed = synth_closed.synth_batch(db, n, dev)
-    wire = torch.stack([p[:, :n] for p in synth.synth_wire_planes(
-        *synth.stage_epochs(eb, dev), n)], dim=-1)
-    checks = {
-        "closed-sharded 2x2 = closed": (synth_batch_sharded(db, n, m22),
-                                        closed),
-        "row-sharded 1x1 = closed": (synth_rows_sharded(db, n, m11), closed),
-        "row-sharded 2x2 = closed": (synth_rows_sharded(db, n, m22), closed),
-        "wire-sharded 2x2 = wire": (synth_epochs_sharded(eb, n, m22), wire),
-        "wire = closed": ([wire], closed),
-    }
-    for label, (pieces, want) in checks.items():
-        if not torch.equal(torch.cat(pieces), want):
-            raise AssertionError(f"phase 13c: {label} fails")
-    say(f"phase 13c dry-run checklist on {dev} (3 epochs, 1 Msps): "
-        + "; ".join(checks) + ": all hold, byte for byte")
+    t = time.perf_counter()
+    checks = dryrun_multichip(4, [dev] * 4)
+    say(f"phase 13c entry.dryrun_multichip(4) on {dev} (2 epochs, 1 Msps, "
+        f"{time.perf_counter() - t:.2f} s): " + "; ".join(checks)
+        + ": all hold, byte for byte")
 
 
 def phase_rows_timing(torch, dev, sass_ops) -> dict:
@@ -1205,6 +1192,83 @@ def phase_scaling(dev) -> None:
             + f"; {rows[0]['device_name']}, {rows[0]['power_limit']}")
 
 
+def phase_day(torch, dev) -> dict:
+    """Phase 14: the full day through dayrun.synth_day at the tool's
+    defaults, held to DAYRUN_r05.json, with the launch counts set to 0 just
+    before and read just after; then the plain version on each batch that
+    holds a sampled block. Returns {"synth_wire": launches, "max_abs_err":
+    max |kernel - plain|}."""
+    from gps_sdr_sim_tpu_torch.ops import synth
+    from gps_sdr_sim_tpu_torch.ops.quantize import words_to_bytes
+    from gps_sdr_sim_tpu_torch.tools import dayrun, deepcheck
+
+    want = json.loads((ROOT / "DAYRUN_r05.json").read_text())
+    cfg = deepcheck.static_config(2.6e6, 86400.0)
+    for k in synth.launch_counts:
+        synth.launch_counts[k] = 0
+    run = dayrun.synth_day(cfg, device=dev, keep_block_batches=True,
+                           log=lambda s: None)
+    launches = dict(synth.launch_counts)
+    st = run.stats
+    for key in ("epochs", "total_samples", "batch_epochs", "sampled_blocks",
+                "checksum_wrapped_int32", "min_batch_nonzero",
+                "block_sha256"):
+        if st[key] != want[key]:
+            raise AssertionError(f"phase 14: {key} {st[key]} != "
+                                 f"DAYRUN_r05.json's {want[key]}")
+    # One launch per batch, and the one that warms the kernel up.
+    if launches["synth_wire"] != st["batches"] + 1 or any(
+            v for k, v in launches.items() if k != "synth_wire"):
+        raise AssertionError(f"phase 14: launches {launches} for "
+                             f"{st['batches']} batches")
+
+    t = time.perf_counter()
+    n, fmt = st["iq_buff_size"], st["fmt"]
+    blocks = [tuple(b) for b in st["sampled_blocks"]]
+    worst, plain_parts = 0, {}
+    for staged, out_lo, valid in run.block_batches:
+        plain = synth.synth_staged_packed(staged, n, fmt, plain=True)
+        worst = max(worst, max_diff(torch, [synth.synth_staged_packed(
+            staged, n, fmt)], [plain]))
+        for blo, r0, r1 in dayrun.block_slices(blocks, out_lo,
+                                               out_lo + valid):
+            plain_parts.setdefault(blo, []).append(bytes(words_to_bytes(
+                plain[r0:r1].cpu().numpy(), n, fmt)))
+        del plain
+    plain_sha = {str(lo): hashlib.sha256(b"".join(p)).hexdigest()
+                 for lo, p in plain_parts.items()}
+    same_sha = plain_sha == st["block_sha256"]
+    if worst or not same_sha:
+        raise AssertionError(f"phase 14: kernel != plain version on the "
+                             f"block batches (max |diff| {worst}; block "
+                             f"sha256 equal: {same_sha})")
+    plain_s = time.perf_counter() - t
+
+    rates = [r["interval_gsps"] for r in st["throughput_timeline"]]
+    say(f"phase 14 day run: {st['epochs']} epochs, {st['total_samples']} "
+        f"samples (86,400 s, 2.6 Msps, SC16) in {st['batches']} batches of "
+        f"{st['batch_epochs']} through dayrun.synth_day on {dev}: checksum "
+        f"(wrapped int32) {st['checksum_wrapped_int32']}, min batch nonzero "
+        f"{st['min_batch_nonzero']} and the sha256 of all "
+        f"{len(st['block_sha256'])} sampled blocks equal DAYRUN_r05.json's; "
+        f"wall {st['wall_s']:.3f} s, plan_s {st['plan_s']:.3f} s (producer "
+        f"thread), build {st['build_s']:.3f} s, warm {st['warm_s']:.3f} s, "
+        f"real-time factor {st['realtime_factor']:.1f}x, "
+        f"{st['samples_per_s']:.3f} Gsamples/s; timeline "
+        f"({len(rates)} drains) min/median/max "
+        f"{st['interval_gsps_min']:.3f}/{st['interval_gsps_median']:.3f}/"
+        f"{st['interval_gsps_max']:.3f} Gsamples/s; kernel "
+        f"{st['kernel_s']:.3f} s by CUDA events, busy share "
+        f"{st['kernel_busy_share'] * 100:.2f}% of wall; peak RSS "
+        f"{st['peak_rss_mb']:.0f} MB; synth_wire launches "
+        f"{launches['synth_wire']} ({st['batches']} batches + 1 warm-up); "
+        f"the {len(run.block_batches)} block batches = the plain version on "
+        f"the card (max |diff| {worst}, same block sha256; "
+        f"{plain_s:.2f} s); {st['card']}")
+    return {"synth_wire": launches["synth_wire"], "max_abs_err": worst,
+            "realtime_factor": st["realtime_factor"]}
+
+
 def main() -> int:
     if not (ROOT / KERNEL_SOURCE).is_file():
         print(f"FAIL: {KERNEL_SOURCE} not found beside chip_smoke.py; run "
@@ -1242,12 +1306,14 @@ def main() -> int:
     row_launches, row_err = phase_rows_canonical(torch, scns[16], dev,
                                                  meshes[1][1])
     closed_rt = phase_closed(torch, scns, dev, meshes[1][1], wire_stats)
-    phase_dryrun(torch, dev)
+    phase_dryrun(dev)
     row_times = phase_rows_timing(torch, dev, sass_ops)
     phase_scaling(dev)
+    day = phase_day(torch, dev)
 
     # Each kernel's launches on the path that runs it.
-    paths = {"synth_wire": launches["synth_wire"] + rx["synth_wire"],
+    paths = {"synth_wire": launches["synth_wire"] + rx["synth_wire"]
+             + day["synth_wire"],
              "synth_wire_planes": sharded["1x1"][0]["synth_wire_planes"],
              "synth_wire_raw": sharded["2x2"][0]["synth_wire_raw"],
              "synth_wire_nav": nav_launches["synth_wire_nav"],
@@ -1269,7 +1335,9 @@ def main() -> int:
         + "; A/B b_over_a (mask table / walk) " + ", ".join(
             f"{k} {r:.4f}" for k, r in ratios.items())
         + "; DeviceBatch path " + ", ".join(
-            f"{k} {r:.1f}x" for k, r in closed_rt.items()) + f" on {card}")
+            f"{k} {r:.1f}x" for k, r in closed_rt.items())
+        + f"; day run (86,400 s, SC16) {day['realtime_factor']:.1f}x on "
+        f"{card}")
     say(card)
     report = []
     for name, replaces in KERNELS.items():
@@ -1281,13 +1349,16 @@ def main() -> int:
                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound, "bound_by": by, "library_ms": None}
         if name == "synth_wire":
-            row["max_abs_err"] = max(max_err[name], rx["max_abs_err"])
+            row["max_abs_err"] = max(max_err[name], rx["max_abs_err"],
+                                     day["max_abs_err"])
             row["launches_by_path"] = {
                 "phase 6 canonical": launches["synth_wire"],
-                "phase 12 receiver": rx["synth_wire"]}
+                "phase 12 receiver": rx["synth_wire"],
+                "phase 14 day run": day["synth_wire"]}
             row["max_abs_err_by_path"] = {
                 "phase 3 kernel vs plain": max_err[name],
-                "phase 12 receiver": rx["max_abs_err"]}
+                "phase 12 receiver": rx["max_abs_err"],
+                "phase 14 day run": day["max_abs_err"]}
         if packed:
             for field, i in (("ms", 0), ("plain_ms", 1), ("bound_ms", 2)):
                 row[f"{field}_by_format"] = {

@@ -143,6 +143,17 @@ class _BitsAction(argparse.Action):
         setattr(ns, self.dest, value)
 
 
+class _AtLeastOneAction(argparse.Action):
+    """--batch-epochs and --shards: a count below 1 is an error here (the
+    JAX CLI loops forever on --batch-epochs 0 and divides by zero on
+    --shards 0)."""
+
+    def __call__(self, parser, ns, value, option_string=None):
+        if value < 1:
+            _err(f"{option_string} must be at least 1.")
+        setattr(ns, self.dest, value)
+
+
 class _DateTimeAction(argparse.Action):
     def __call__(self, parser, ns, value, option_string=None):
         if not (option_string == "-T" and value.startswith("now")):
@@ -173,11 +184,13 @@ def parse_args(argv):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--carrier-phase", default="float",
                     choices=("float", "fixed"))
-    ap.add_argument("--batch-epochs", type=int, default=20)
+    ap.add_argument("--batch-epochs", type=int, default=20,
+                    action=_AtLeastOneAction)
     ap.add_argument("--motion-size", type=int, default=USER_MOTION_SIZE)
     ap.add_argument("--json-summary", default="")
     ap.add_argument("--shard-dir", default="")
-    ap.add_argument("--shards", type=int, default=None)
+    ap.add_argument("--shards", type=int, default=None,
+                    action=_AtLeastOneAction)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--concat", action="store_true")
     ap.add_argument("--multihost", default="", metavar="COORD:PORT,ID,N")

@@ -441,11 +441,14 @@ def _count(key: str, nav_gather: bool) -> None:
 
 
 def synth_wire(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
-               n_out: int, fmt: int, nav_gather: bool = False) -> torch.Tensor:
+               n_out: int, fmt: int, nav_gather: bool = False,
+               timing: list = None) -> torch.Tensor:
     """[B, C, 12] wire -> [B, words_per_epoch(n_out, fmt)] int32 words.
 
     CUDA tensors go through the hand-written kernel (a build or launch
-    failure raises); CPU tensors through synth_wire_ref."""
+    failure raises); CPU tensors through synth_wire_ref. timing: on a CUDA
+    tensor, a (start, end) pair of timing events recorded on the current
+    stream right before and right after the launch is appended to it."""
     if fmt not in PACK_DIV:
         raise ValueError(f"Invalid I/Q data format: {fmt}")
     _check(wire, ca_words, n_chan, n_out)
@@ -455,8 +458,16 @@ def synth_wire(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
 
     out = torch.empty((wire.shape[0], words_per_epoch(n_out, fmt)),
                       dtype=torch.int32, device=wire.device)
-    synth_cuda.launch(wire, ca_words, trig_table(wire.device), out, n_chan,
+    table = trig_table(wire.device)
+    if timing is not None:
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+    synth_cuda.launch(wire, ca_words, table, out, n_chan,
                       -(-n_out // SUBBLOCK), fmt, nav_gather)
+    if timing is not None:
+        ev[1].record()
+        timing.append(ev)
     _count("synth_wire", nav_gather)
     return out
 
@@ -502,13 +513,16 @@ def synth_wire_raw(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
 
 
 def synth_staged_packed(staged: Staged, n_out: int, fmt: int = 16,
-                        plain: bool = False,
-                        nav_gather: bool = False) -> torch.Tensor:
+                        plain: bool = False, nav_gather: bool = False,
+                        timing: list = None) -> torch.Tensor:
     """Staged batch -> [B, words] int32 output words (see module doc);
-    plain=True runs synth_wire_ref on the staged device instead."""
-    fn = synth_wire_ref if plain else synth_wire
-    return fn(staged.wire, staged.ca_words, staged.n_chan, n_out, fmt,
-              nav_gather)
+    plain=True runs synth_wire_ref on the staged device instead. timing:
+    as synth_wire's (the plain version records nothing)."""
+    args = (staged.wire, staged.ca_words, staged.n_chan, n_out, fmt,
+            nav_gather)
+    if plain:
+        return synth_wire_ref(*args)
+    return synth_wire(*args, timing=timing)
 
 
 def _check_rows(rows: torch.Tensor, ca_words: torch.Tensor) -> None:

@@ -81,11 +81,24 @@ class RunStats:
         }
 
 
+class EpochCountError(ValueError):
+    """An epoch count below 1: a batch loop over it would never advance."""
+
+
+def check_epoch_count(n: int, name: str = "batch_epochs") -> None:
+    """Raise EpochCountError unless the epoch count `n` (named `name` in
+    the message) is at least 1."""
+    if n < 1:
+        raise EpochCountError(f"{name} must be at least 1, got {n}")
+
+
 def iter_segment_batches(segments, lo: int, hi: int, batch_epochs: int):
     """Yield (segment, e0, e1) covering output epochs [lo, hi) in order.
 
     Output epoch k (0-based) is synthesized by segment-local epoch
-    k - (first_epoch - 1) of the segment containing it."""
+    k - (first_epoch - 1) of the segment containing it. Raises ValueError
+    if batch_epochs < 1 (it would never advance)."""
+    check_epoch_count(batch_epochs)
     for seg in segments:
         s0 = seg.first_epoch - 1
         a, b = max(lo, s0), min(hi, s0 + seg.n_epochs)
@@ -147,7 +160,9 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
     "cuda-sharded", "torch-sharded" or "closed-sharded" run the same over
     `mesh` (parallel.mesh.Mesh; default auto_mesh over every local device
     of `device`'s type). The kernel's nav mask-table variant runs when
-    GPS_SDR_SIM_NAV_GATHER=1 at this call (ops.synth.nav_gather_enabled)."""
+    GPS_SDR_SIM_NAV_GATHER=1 at this call (ops.synth.nav_gather_enabled).
+    Raises ValueError for batch_epochs < 1 (iter_segment_batches), before
+    anything is written."""
     if log is None:
         log = lambda s: print(s, end="", file=sys.stderr, flush=True)
     device = resolve_device(impl, device)

@@ -51,6 +51,7 @@ from gps_sdr_sim_tpu_torch.parallel import (
     synth_rows_sharded,
 )
 from gps_sdr_sim_tpu_torch.parallel.mesh import local_devices
+from gps_sdr_sim_tpu_torch.runner import EpochCountError, check_epoch_count
 from gps_sdr_sim_tpu_torch.testing import NAV, ROOT, TOKYO
 
 IMPLS = ("closed", "cuda", "cuda-wire")
@@ -77,7 +78,9 @@ def sweep(impl: str = "closed", device="cuda", epochs_per_device: int = 8,
     """The in-process sweep; returns its rows. repeat_devices: a list of
     mesh sizes over the first device repeated, instead of 1, 2, 4, ... over
     the distinct devices. Raises ValueError for a cuda impl on another
-    device type, RuntimeError for a CUDA device that is not available."""
+    device type or fewer than one epoch per device, RuntimeError for a
+    CUDA device that is not available."""
+    check_epoch_count(epochs_per_device, "epochs_per_device")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     device_type = torch.device(device).type
@@ -261,10 +264,14 @@ def main(argv=None) -> int:
             [int(v) for v in ns.multihost.split(",")], ns.impl, ns.device,
             ns.duration, ns.samp_freq or 1.0e6)
     else:
-        rows = sweep(ns.impl, ns.device, ns.epochs_per_device,
-                     ns.samp_freq or 2.6e6, ns.chan_axis, ns.repeats,
-                     [int(v) for v in ns.repeat_devices.split(",")]
-                     if ns.repeat_devices else None)
+        try:
+            rows = sweep(ns.impl, ns.device, ns.epochs_per_device,
+                         ns.samp_freq or 2.6e6, ns.chan_axis, ns.repeats,
+                         [int(v) for v in ns.repeat_devices.split(",")]
+                         if ns.repeat_devices else None)
+        except EpochCountError as e:
+            print(f"ERROR: {e}", file=sys.stderr)
+            return 1
     for row in rows:
         print(json.dumps(row), flush=True)
     if ns.json:

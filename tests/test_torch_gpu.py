@@ -241,3 +241,39 @@ def test_rows_sharded_2x2_matches_one_card(cards):
         db, n, make_mesh(2, 2, devs))])
     assert torch.equal(got, synth.synth_batch(db, n, "cuda:0").cpu())
     assert torch.equal(got, synth_closed.synth_batch(db, n, "cpu"))
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_one_card_repeated():
+    """entry.dryrun_multichip on a 2x2 mesh of four entries of cuda:0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gps_sdr_sim_tpu_torch.entry import dryrun_multichip
+
+    before = dict(synth.launch_counts)
+    checks = dryrun_multichip(4, [torch.device("cuda", 0)] * 4)
+    assert len(checks) == 5
+    for key in ("synth_wire_planes", "synth_wire_raw", "synth_rows_planes",
+                "synth_rows_raw"):
+        assert synth.launch_counts[key] > before[key], key
+
+
+@pytest.mark.gpu
+def test_dayrun_spot_check_on_the_card():
+    """The day's block one hour in, through the kernel: the sha256 that
+    DAYRUN_r05.json records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+
+    from gps_sdr_sim_tpu_torch.testing import ROOT
+    from gps_sdr_sim_tpu_torch.tools import dayrun, deepcheck
+
+    want = json.loads((ROOT / "DAYRUN_r05.json").read_text())
+    before = synth.launch_counts["synth_wire"]
+    run = dayrun.synth_day(deepcheck.static_config(2.6e6, 86400.0),
+                           device="cuda", only_blocks=[36000],
+                           log=lambda s: None)
+    assert synth.launch_counts["synth_wire"] == before + 2  # + the warm-up
+    assert run.stats["block_sha256"] == {
+        "36000": want["block_sha256"]["36000"]}

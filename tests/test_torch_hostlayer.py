@@ -48,14 +48,20 @@ from gps_sdr_sim_tpu_torch.testing import (
 
 
 def _forbidden(name: str) -> bool:
+    """jax, the JAX package, and the repository's root tools and entry
+    modules (the port keeps its own copies)."""
     return any(name == p or name.startswith(p + ".")
-               for p in ("jax", "gps_sdr_sim_tpu"))
+               for p in ("jax", "gps_sdr_sim_tpu", "tools", "__graft_entry__",
+                         "bench", "bench_scaling", "deepcheck", "dayrun"))
 
 
 def test_no_import_of_jax_or_the_jax_package():
     files = sorted((ROOT / "gps_sdr_sim_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    port = ROOT / "gps_sdr_sim_tpu_torch"
+    assert {port / "entry.py", port / "tools" / "dayrun.py",
+            port / "tools" / "deepcheck.py"} <= set(files)
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

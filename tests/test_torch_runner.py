@@ -1,8 +1,12 @@
 """The port's runner and CLI (gps_sdr_sim_tpu_torch) on the CPU: the C-
-reference goldens, byte and stderr parity with the JAX CLI, the errors of
-the shard and multihost flags, and that the port runs without JAX
-(--profile is tested in test_torch_tools.py)."""
+reference goldens, byte and stderr parity with the JAX CLI (over the cases
+of tests/test_cli.py and more, through the plain versions and the closed
+form), the errors of the shard and multihost flags, the counts below 1
+that the CLI, the runner and the tools refuse (ROADMAP C4), and that the
+port runs without JAX (--profile is tested in test_torch_tools.py)."""
 
+import contextlib
+import io
 import os
 import socket
 import subprocess
@@ -12,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+import gps_sdr_sim_tpu.cli as jax_cli
 import gps_sdr_sim_tpu_torch.cli as port_cli
 from gps_sdr_sim_tpu.cli import main as jax_main
 from gps_sdr_sim_tpu.parallel import writer as jax_writer
 from gps_sdr_sim_tpu_torch.cli import main
 from gps_sdr_sim_tpu_torch.testing import (
+    DATA,
     NAV,
     ROOT,
     SCENARIOS,
@@ -154,6 +160,169 @@ def test_shard_flag_errors_match_jax_cli(tmp_path, capsys, monkeypatch,
     assert got[0] == 1 and got[1].startswith("ERROR: ")
 
 
+# The cases of tests/test_cli.py and beyond, each run by the port's CLI
+# (plain versions on the CPU) and the JAX CLI (--impl xla): input errors,
+# motion scenarios, position and time, formats and modes.
+_LLH = "35.681298,139.766247,10.0"
+_RUN = ["-d", "0.3", "-s", "1000000", "--batch-epochs", "2"]
+CLI_CASES = {
+    "bad_format": ["-b", "12"],
+    "bad_rate": ["-s", "999999"],
+    "bad_start_time": ["-t", "2020/01/01,00:00:00", "-d", "0.1"],
+    "missing_motion_file": ["-u", "no_such_file.csv", "-d", "0.3"],
+    "satellite_motion_size": ["-u", str(DATA / "satellite.csv"), "-i",
+                              *_RUN, "-d", "0.4", "--motion-size", "4000"],
+    "satellite_default_size": ["-u", str(DATA / "satellite.csv"), "-i",
+                               *_RUN, "-d", "0.4"],
+    "static_wins_over_motion": ["-l", _LLH, "-u", str(DATA / "circle.csv"),
+                                *_RUN],
+    "zero_duration_dynamic": ["-u", str(DATA / "circle.csv"), "-s",
+                              "1000000", "-d", "0"],
+    "negative_ecef": ["-c", "-2694685.473,-4293642.366,3857878.924", *_RUN],
+    "nmea": ["-g", str(DATA / "triumphv3.txt"), *_RUN],
+    "rocket": ["-u", str(DATA / "rocket.csv"), *_RUN],
+    "later_start": ["-l", _LLH, "-t", "2014/12/20,02:00:00", *_RUN],
+    "toc_override": ["-l", _LLH, "-T", "2015/01/01,00:00:00", *_RUN],
+    "sub_epoch": ["-l", _LLH, *_RUN, "-d", "0.05"],
+    "altitude_30km": ["-l", "35.681298,139.766247,30000", *_RUN],
+    "sc08_2048": ["-l", _LLH, *_RUN, "-b", "8", "-s", "2048000"],
+    "sc01_1023": ["-l", _LLH, *_RUN, "-b", "1", "-s", "1023000"],
+    "fixed_carrier": ["-l", _LLH, *_RUN, "--carrier-phase", "fixed"],
+    "no_iono_verbose": ["-l", _LLH, *_RUN, "-i", "-v"],
+    "motion_size_10": ["-u", str(DATA / "circle.csv"), *_RUN,
+                       "--motion-size", "10"],
+}
+
+
+def _usage_lines(module) -> set:
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        module._usage()
+    return set(err.getvalue().splitlines())
+
+
+def _without_usage(err: str, module) -> list:
+    """_strip_stderr with the usage text folded into one line: the two
+    CLIs' usage texts differ in their name and extension lines."""
+    usage, out = _usage_lines(module), []
+    for ln in _strip_stderr(err):
+        if ln not in usage:
+            out.append(ln)
+        elif not out or out[-1] != "<usage>":
+            out.append("<usage>")
+    return out
+
+
+def _exit_code(fn, argv) -> int:
+    try:
+        return fn(argv)
+    except SystemExit as e:
+        return e.code
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run torch on one thread: the suite runs several test processes on a
+    few cores, and small ops stall on contended intra-op threads (ROADMAP
+    C3)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("impl", ["torch", "closed"])
+@pytest.mark.parametrize("case", sorted(CLI_CASES))
+def test_cli_cases_match_jax_cli(tmp_path, capsys, case, impl):
+    """Exit code, output bytes (or no file) and stderr equal the JAX
+    CLI's."""
+    ours, ref = tmp_path / "ours.bin", tmp_path / "ref.bin"
+    argv = ["-e", str(NAV), *CLI_CASES[case]]
+    want = _exit_code(jax_main, argv + ["-o", str(ref), "--impl", "xla"])
+    err_ref = capsys.readouterr().err
+    got = _exit_code(main, argv + ["-o", str(ours), "--impl", impl,
+                                   "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert got == want
+    assert ours.exists() == ref.exists()
+    if ref.exists():
+        assert ours.read_bytes() == ref.read_bytes()
+    assert _without_usage(err, port_cli) == _without_usage(
+        err_ref, jax_cli)
+    assert err.strip()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--batch-epochs", "0"], ["--batch-epochs", "-1"], ["--shards", "0"],
+    ["--shard-dir", "{tmp}/s", "--shards", "-2"]])
+def test_cli_rejects_counts_below_one(tmp_path, capsys, argv):
+    """C4: the JAX CLI loops forever on --batch-epochs 0 or -1 and divides
+    by zero on --shards 0; the port exits 1 with an ERROR line, as it does
+    for -s and -b, and writes nothing."""
+    out = tmp_path / "x.bin"
+    flag = argv[-2]
+    rc, error = _exit_and_error(main, STATIC + [
+        a.format(tmp=tmp_path) for a in argv] + [
+        "-o", str(out), "--impl", "torch", "--device", "cpu"], capsys)
+    assert (rc, error) == (1, f"ERROR: {flag} must be at least 1.")
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("batch_epochs", [0, -1])
+def test_runner_rejects_batch_epochs_below_one(batch_epochs):
+    from gps_sdr_sim_tpu_torch.runner import (
+        iter_seg_batches,
+        run_epoch_range,
+    )
+    from gps_sdr_sim_tpu_torch.testing import golden_scenario
+
+    scn = golden_scenario("static16")
+    buf = io.BytesIO()
+    with pytest.raises(ValueError, match="batch_epochs must be at least 1"):
+        run_epoch_range(scn, buf, 0, scn.n_output_epochs,
+                        batch_epochs=batch_epochs, impl="torch",
+                        device="cpu")
+    with pytest.raises(ValueError, match="batch_epochs must be at least 1"):
+        next(iter_seg_batches(scn, 0, scn.n_output_epochs, batch_epochs))
+    assert buf.getvalue() == b""
+
+
+@pytest.mark.parametrize("tool, argv, error", [
+    ("bench_scaling", ["--device", "cpu", "--epochs-per-device", "0"],
+     "epochs_per_device must be at least 1, got 0"),
+    ("dayrun", ["--device", "cpu", "--batch-epochs", "0"],
+     "batch_epochs must be at least 1, got 0"),
+    ("dayrun", ["--device", "cpu", "--drain-epochs", "-1"],
+     "drain_epochs must be at least 1, got -1"),
+    ("dayrun", ["--phase", "diff", "--block-epochs", "0"],
+     "--block-epochs must be at least 1."),
+    ("deepcheck", ["--block-epochs", "0"],
+     "--block-epochs must be at least 1."),
+])
+def test_tools_reject_counts_below_one(tmp_path, capsys, tool, argv, error):
+    import importlib
+
+    module = importlib.import_module(f"gps_sdr_sim_tpu_torch.tools.{tool}")
+    files = (["--json", str(tmp_path / "d.json"), "--blocks-file",
+              str(tmp_path / "b.npz")] if tool == "dayrun" else [])
+    assert _exit_and_error(module.main, argv + files, capsys) == (
+        1, f"ERROR: {error}")
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_tool_functions_reject_counts_below_one():
+    from gps_sdr_sim_tpu_torch.tools import bench_scaling, dayrun, deepcheck
+
+    with pytest.raises(ValueError, match="epochs_per_device must be at"):
+        bench_scaling.sweep(device="cpu", epochs_per_device=0)
+    cfg = deepcheck.static_config(1.0e6, 1.0)
+    for kw in ({"batch_epochs": 0}, {"drain_epochs": 0},
+               {"block_epochs": -3}):
+        with pytest.raises(ValueError, match=f"{next(iter(kw))} must be"):
+            dayrun.synth_day(cfg, device="cpu", **kw)
+
+
 def test_runner_rejects_cuda_impl_on_cpu():
     from gps_sdr_sim_tpu_torch.runner import run_simulation
     from gps_sdr_sim_tpu_torch.testing import golden_scenario
@@ -191,18 +360,24 @@ def test_fetch_event_recorded_on_outputs_stream(monkeypatch):
 
 _NO_JAX = r"""
 import sys
-# Any import of jax or of the JAX package now raises ImportError.
-sys.modules["jax"] = sys.modules["gps_sdr_sim_tpu"] = None
+# Any import of jax, of the JAX package, of the root tools or of the root
+# __graft_entry__ now raises ImportError.
+BLOCKED = ("jax", "gps_sdr_sim_tpu", "tools", "__graft_entry__", "bench",
+           "bench_scaling", "deepcheck", "dayrun")
+for name in BLOCKED:
+    sys.modules[name] = None
 import gps_sdr_sim_tpu_torch, gps_sdr_sim_tpu_torch.cli
 import gps_sdr_sim_tpu_torch.runner, gps_sdr_sim_tpu_torch.testing
 import gps_sdr_sim_tpu_torch.ops.synth, gps_sdr_sim_tpu_torch.ops.synth_cuda
 import gps_sdr_sim_tpu_torch.ops.quantize, gps_sdr_sim_tpu_torch.parallel
 import gps_sdr_sim_tpu_torch.receiver.__main__, gps_sdr_sim_tpu_torch.receiver.rtk
 import gps_sdr_sim_tpu_torch.receiver.pvt, gps_sdr_sim_tpu_torch.receiver.rinex
+import gps_sdr_sim_tpu_torch.entry, gps_sdr_sim_tpu_torch.tools.dayrun
+import gps_sdr_sim_tpu_torch.tools.deepcheck
 rc = gps_sdr_sim_tpu_torch.cli.main(sys.argv[1:])
-assert not any(m.split(".")[0] in ("jax", "gps_sdr_sim_tpu")
+assert not any(m.split(".")[0] in BLOCKED
                for m in sys.modules if sys.modules[m] is not None), \
-    "jax or gps_sdr_sim_tpu was imported"
+    "jax, gps_sdr_sim_tpu or a root tool was imported"
 sys.exit(rc)
 """
 
