@@ -13,14 +13,19 @@ of findings (any failure raises and exits non-zero):
 
  1. environment: card name and power limit, CUDA, nvcc, triton;
  2. build csrc/synth.cu and csrc/vpu_peak.cu with nvcc for sm_90a, the two
-    nvcc processes side by side (timed as set-up); count each synthesis
-    instantiation's instructions per (sample, channel) and each vpu_peak
-    case's instructions per round in the SASS;
+    nvcc processes side by side (timed as set-up); print each synthesis
+    instantiation's registers, shared memory and spills (-Xptxas -v) and
+    its SASS instructions per (sample, channel) (its channel loop's length
+    over the samples one trip covers, a diagnostic: the bounds count the
+    algorithm's operations), and each vpu_peak case's instructions per
+    round;
  3. the synthesis kernel's three modes (packed words, int16 planes, raw
     int32 sums), with the nav window walk and with the nav mask table,
     against their plain PyTorch versions on the card, word for word: four
     sample rates, the highalt16 and staticfix16 configurations, and seeded
-    random wires; the planes, interleaved, must be the SC16 words; on the
+    random wires (two with code steps just below the kernel's domain edge of
+    2 chips per sample); the planes, interleaved, must be the SC16 words; on
+    the
     six real configurations the mask table's words equal the walk's;
  4. the 11 C-reference IQ goldens through run_simulation(impl="cuda");
  5. the CLI end to end as a subprocess, checked against golden static16;
@@ -33,7 +38,8 @@ of findings (any failure raises and exits non-zero):
     meshes (SC16): the same checksums, and the real-time factors beside
     the walk's;
  7. kernel and plain-version times of each mode, walk and mask table, on
-    one 100-epoch 2.6 Msps batch, beside each mode's bound; the two
+    one 100-epoch 2.6 Msps batch, beside each mode's bound (the
+    algorithm's operations, ALGORITHM_OPS); the two
     variants of each mode are timed in turns by the A/B harness
     (tools/ab_kernel.compare), which gives b_over_a;
  8. the canonical workload through run_simulation(impl="cuda-sharded") on a
@@ -94,8 +100,8 @@ of findings (any failure raises and exits non-zero):
     timeline's min/median/max and the kernel's busy share (kernel time by
     CUDA events over wall).
 
-The line before the last is the kernel report; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernel report (each synthesis row with its
+design, DESIGN); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -150,6 +156,9 @@ ROW_KERNELS = {
     "synth_rows_raw": "gps_sdr_sim_tpu/ops/synth_pallas.py:508",
 }
 VPU_PEAK_REPLACES = "tools/vpu_peak.py:58"
+# The synthesis kernels' design: every mode runs one sample loop of
+# csrc/synth.cu.
+DESIGN = "channels outer, stepped phases, per-chip sign words"
 NAV_SWITCH = "GPS_SDR_SIM_NAV_GATHER"
 RATES = (1.0e6, 1310720.0, 1331200.0, 2.6e6)
 FORMATS = (16, 8, 1)
@@ -157,6 +166,22 @@ FORMATS = (16, 8, 1)
 # scheduler, i.e. the 67 TFLOP/s float32 rate counted in FMAs.
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_PER_S = 67e12 / 2
+# The integer operations the synthesis algorithm needs, whatever the
+# kernel's design: per (sample, channel whose gain is not 0), advance the
+# code phase, whole-chip index, its wrap into the 1023-chip code period,
+# C/A bit, nav bit, sign = C/A xor nav, advance the carrier phase,
+# trig-table index, cos and sin lookups, two gain products and two signed
+# sums; per quantized sample (planes and the packed formats, not the raw
+# sums) the rounding and packing. The wrap counts because the function
+# reads the C/A chip at the chip count mod 1023, whatever a design does to
+# avoid a per-sample wrap; phases 7 and 13d also print the share the bound
+# would give without it (13 per pair), beside the one it gives.
+ALGORITHM_OPS = {"code phase": 1, "whole chip": 1, "code period wrap": 1,
+                 "C/A bit": 1, "nav bit": 1, "sign": 1, "carrier phase": 1,
+                 "table index": 1, "cos and sin": 2, "gain products": 2,
+                 "signed sums": 2}
+OPS_PER_SAMPLE_CHANNEL = sum(ALGORITHM_OPS.values())  # 14
+OPS_PER_QUANTIZED_SAMPLE = 4
 
 
 def say(line: str) -> None:
@@ -189,72 +214,48 @@ def phase_env(torch) -> str:
     return card
 
 
-def sass_loop_instructions(loops: dict) -> dict:
-    """Instructions in each synthesis instantiation's channel loop, from
-    synth_cuda.sass_loops: the shortest loop whose body holds an IMAD.HI,
-    the multiply-high that the floor divisions by 1023 (and, in the walk,
-    by 20) compile to. The loop is kept rolled (csrc/synth.cu), so its
-    length is what one (sample, channel) issues. Keys: synth_wire/16,
-    synth_wire/8, synth_wire/1, synth_wire_planes, synth_wire_raw, the
-    same with _nav for the mask-table variant, and synth_rows_planes and
-    synth_rows_raw for the row form."""
-    modes = {("0", "16"): "synth_wire/16", ("0", "8"): "synth_wire/8",
-             ("0", "1"): "synth_wire/1", ("1", "0"): "synth_wire_planes",
-             ("2", "0"): "synth_wire_raw"}
-    names = {}
-    for (mode, fmt), key in modes.items():
-        names[(mode, fmt, "0")] = key
-        base, _, f = key.partition("/")
-        names[(mode, fmt, "1")] = f"{base}_nav/{f}" if f else f"{key}_nav"
-    rows = {"1": "synth_rows_planes", "2": "synth_rows_raw"}
-    names.update({(mode, "rows"): key for mode, key in rows.items()})
-    counts = {}
-    for fn, found in loops.items():
-        m = re.match(r"\S*synth_wire_kernelILi(\d)ELi(\d+)ELb([01])E", fn)
-        r = re.match(r"\S*synth_rows_kernelILi(\d)E", fn)
-        if m:
-            key = names[m.groups()]
-        elif r:
-            key = rows[r.group(1)]
-        else:
-            continue
-        with_div = [len(loop) for loop in found
-                    if any(o.startswith("IMAD.HI") for o in loop)]
-        if not with_div:
-            raise AssertionError(f"no channel loop found in {fn}")
-        counts[key] = min(with_div)
-    if sorted(counts) != sorted(names.values()):
-        raise AssertionError(f"SASS holds kernels {sorted(counts)}")
-    return counts
-
-
 def phase_build() -> dict:
-    """Builds both sources side by side; returns the SASS counts:
-    sass_loop_instructions of the synthesis library and, under vpu_peak/
-    keys, each vpu_peak case's instructions per round."""
+    """Builds both sources side by side; prints each synthesis
+    instantiation's -Xptxas -v usage and SASS instructions per (sample,
+    channel); returns each vpu_peak case's SASS instructions per round,
+    under vpu_peak/ keys."""
     from gps_sdr_sim_tpu_torch.ops import synth_cuda
     from gps_sdr_sim_tpu_torch.tools import vpu_peak
 
     t = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda src: synth_cuda.build(src, verbose=True),
-                             (synth_cuda.SOURCE, synth_cuda.VPU_PEAK_SOURCE)))
+        libs = list(pool.map(synth_cuda.build, (synth_cuda.SOURCE,
+                                                synth_cuda.VPU_PEAK_SOURCE)))
     synth_cuda.load()
     built = time.perf_counter() - t
-    ops = sass_loop_instructions(synth_cuda.sass_loops(synth_cuda.sass(
-        libs[0])))
+    per_sample = synth_cuda.channel_loop_instructions(synth_cuda.sass_loops(
+        synth_cuda.sass(libs[0])))
+    usage = {synth_cuda.instantiation_key(fn): u for fn, u in
+             synth_cuda.ptxas_usage(synth_cuda.build_log(libs[0])).items()
+             if synth_cuda.instantiation_key(fn)}
+    if sorted(usage) != sorted(per_sample):
+        raise AssertionError(f"-Xptxas -v reports kernels {sorted(usage)}")
     rounds = vpu_peak.round_instructions(synth_cuda.sass_loops(
         synth_cuda.sass(libs[1])))
-    ops.update({f"vpu_peak/{k}": v for k, v in rounds.items()})
     say(f"phase 2 build: {libs[0].name} and {libs[1].name} in {built:.2f} s "
-        f"(two nvcc side by side); SASS channel-loop instructions per "
-        f"(sample, channel), and vpu_peak instructions per round: "
-        f"{json.dumps(ops)}")
-    return ops
+        f"(two nvcc side by side)")
+    for key, n in per_sample.items():
+        u = usage[key]
+        say(f"phase 2 {key}: {n:.2f} SASS instructions per (sample, channel) "
+            f"({n * synth_cuda.SAMPLES_PER_TRIP:.0f} per trip of the channel "
+            f"loop over {synth_cuda.SAMPLES_PER_TRIP} samples); -Xptxas -v: "
+            f"{u['registers']} registers, {u['smem_bytes']} bytes smem, "
+            f"spill stores {u['spill_stores']} / loads {u['spill_loads']} "
+            f"bytes")
+    say(f"phase 2 vpu_peak SASS instructions per round: "
+        f"{json.dumps(rounds)}")
+    return {f"vpu_peak/{k}": v for k, v in rounds.items()}
 
 
 def phase_kernel_vs_plain(torch, dev) -> dict:
     """Returns each kernel's largest |kernel - plain| over all outputs."""
+    import numpy as np
+
     from gps_sdr_sim_tpu_torch.models.scenario import (
         ScenarioConfig,
         build_scenario,
@@ -317,8 +318,12 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
             if not all(torch.equal(a, b) for a, b in zip(w, g)):
                 raise AssertionError(f"mask table != window walk on the "
                                      f"real plan {label}")
-    for seed in range(8):
+    for seed in range(10):
         wire, ca, n_chan = random_wire(seed, n_epochs=3, max_gain=400)
+        if seed >= 8:  # code steps just inside the kernel's domain
+            wire[..., 2:4] = np.full(wire.shape[:2], synth.MAX_CODE_STEP - 1,
+                                     np.int64).view(np.int32).reshape(
+                                         *wire.shape[:2], 2)
         wire, ca = torch.from_numpy(wire).to(dev), torch.from_numpy(ca).to(dev)
         for nav in (False, True):
             compare(wire, ca, n_chan, 5000, f"random seed {seed}", nav)
@@ -327,10 +332,11 @@ def phase_kernel_vs_plain(torch, dev) -> dict:
         if launched != calls[k]:
             raise AssertionError(f"{k}: {calls[k]} calls, {launched} "
                                  f"launches")
-    say(f"phase 3 kernel vs plain: equal in every case (6 configs + 8 "
-        f"random wires; packed x 3 formats, planes, raw; window walk and "
-        f"mask table): cases {json.dumps(calls)}, max |diff| "
-        f"{json.dumps(worst)}; planes interleaved = SC16 words in all 28; "
+    say(f"phase 3 kernel vs plain: equal in every case (6 configs + 10 "
+        f"random wires, 2 of them at code steps just below 2 chips per "
+        f"sample; packed x 3 formats, planes, raw; window walk and mask "
+        f"table): cases {json.dumps(calls)}, max |diff| "
+        f"{json.dumps(worst)}; planes interleaved = SC16 words in all 32; "
         f"mask-table words = walk words on the 6 real configs")
     return worst
 
@@ -478,19 +484,36 @@ def canonical_runs(torch, scns: dict, label: str, timed_formats,
     return launches, rt, stats
 
 
-def bound_ms(in_bytes: int, out_bytes: int, instructions: int,
-             samples: int, channels: int) -> tuple[float, str]:
+def bound_ms(in_bytes: int, out_bytes: int,
+             operations: float) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the HBM rate and
-    the channel loop's instructions for every needed (sample, channel)
-    over the issue rate. Returns (ms, "bytes" or "operations")."""
+    the operations over the issue rate. Returns (ms, "bytes" or
+    "operations")."""
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = instructions * samples * channels / ISSUE_PER_S * 1e3
+    t_ops = operations / ISSUE_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                  else "operations")
 
 
-def phase_timing(torch, dev, sass_ops: dict) -> tuple[dict, dict]:
+def synth_operations(sample_channels: int, samples: int,
+                     quantized: bool) -> int:
+    """The algorithm's operations for `sample_channels` (sample, channel
+    with gain) pairs over `samples` output samples (ALGORITHM_OPS), the
+    same for every design of the kernel."""
+    return (OPS_PER_SAMPLE_CHANNEL * sample_channels
+            + (OPS_PER_QUANTIZED_SAMPLE * samples if quantized else 0))
+
+
+def share_without_wrap(ops: int, sample_channels: int, ms: float) -> float:
+    """The share of `ms` that the operations bound would give at 13
+    operations per (sample, channel), the code period wrap left out: a
+    diagnostic beside the bound, which counts it."""
+    ops -= ALGORITHM_OPS["code period wrap"] * sample_channels
+    return ops / ISSUE_PER_S * 1e3 / ms
+
+
+def phase_timing(torch, dev) -> tuple[dict, dict]:
     """Kernel and plain-version ms of every mode, window walk and mask
     table, on one 100-epoch 2.6 Msps batch, at the widths the main path
     gives each: the packed words over the active channels, the planes over
@@ -532,9 +555,11 @@ def phase_timing(torch, dev, sass_ops: dict) -> tuple[dict, dict]:
             raise AssertionError(f"{key}: mask table != window walk on the "
                                  f"100-epoch batch")
         ratios[key] = ab["b_over_a"]
-        # The data needs the channels whose gain is not 0.
-        active = int((w[:, :k, 11] != 0).any(dim=0).sum())
+        # The data needs the (epoch, channel) pairs whose gain is not 0.
+        pairs = int((w[:, :k, 11] != 0).sum())
         in_bytes = w.numel() * 4 + c.numel() * 4 + 2 * 512 * 4
+        ops = synth_operations(pairs * n, w.shape[0] * n,
+                               key != "synth_wire_raw")
         for g, label in ((False, "walk"), (True, "mask table")):
             name = nav_key(key) if g else key
             got, want = kernel(w, c, k, g), plain(w, c, k, g)
@@ -547,17 +572,18 @@ def phase_timing(torch, dev, sass_ops: dict) -> tuple[dict, dict]:
             del got, want
             ms = ab["best_s"][label] * 1e3
             plain_ms = time_ms(lambda: plain(w, c, k, g), 2, dev, warm=False)
-            bound, by = bound_ms(in_bytes, out_bytes, sass_ops[name],
-                                 w.shape[0] * n, active)
+            bound, by = bound_ms(in_bytes, out_bytes, ops)
             times[name] = (ms, plain_ms, bound, by)
             say(f"phase 7 timing {name}: {w.shape[0]} epochs x {n} samples "
-                f"x {k} channels ({active} with gain): kernel {ms:.4f} ms "
+                f"x {k} channels ({pairs} (epoch, channel) pairs with gain): "
+                f"kernel {ms:.4f} ms "
                 f"({w.shape[0] * n / ms / 1e6:.3f} Gsamples/s; the A/B's "
                 f"reps {'/'.join(f'{t * 1e3:.4f}' for t in ab['reps_s'][label])}"
                 f" ms), plain {plain_ms:.3f} ms, "
-                f"bound {bound:.3f} ms by {by} ({sass_ops[name]} "
-                f"instructions per (sample, channel), {out_bytes} bytes "
-                f"out), kernel = plain bit for bit")
+                f"bound {bound:.4f} ms by {by} ({ops} operations, "
+                f"{out_bytes} bytes out; {bound / ms:.1%} of it; "
+                f"{share_without_wrap(ops, pairs * n, ms):.1%} at 13 "
+                f"operations per pair), kernel = plain bit for bit")
     say("phase 7 A/B (tools/ab_kernel.compare, 4 reps x 5 passes, walk and "
         "mask table bit-equal), b_over_a = mask table / window walk: "
         + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items()))
@@ -714,8 +740,10 @@ def phase_vpu_peak(sass_ops: dict) -> dict:
     alu = next(c for c in res["cases"] if c["name"] == "alu")
     elems = tiles * vpu_peak.SLAB * vpu_peak.LANES
     in_bytes = (vpu_peak.SLAB + 1) * vpu_peak.LANES * 4
-    bound, by = bound_ms(in_bytes, elems * 4, sass_ops["vpu_peak/alu"],
-                         elems * rounds, 1)
+    # A microbenchmark of the issue rate: its instructions are its work, so
+    # its operations are its own SASS per round (not an algorithm's count).
+    bound, by = bound_ms(in_bytes, elems * 4,
+                         sass_ops["vpu_peak/alu"] * elems * rounds)
     for c in res["cases"]:
         say(f"phase 10 vpu_peak {c['name']}: {c['ms']:.4f} ms (plain "
             f"{c['plain_ms']:.3f} ms, equal word for word), "
@@ -1047,7 +1075,7 @@ def phase_rows_canonical(torch, scn, dev, mesh) -> tuple[dict, dict]:
             launches[k] += synth.launch_counts[k]
         batches += 1
 
-        rows = synth.upload(synth.pack_rows(db), dev)
+        rows = synth.upload_rows(synth.pack_rows(db), dev)
         ca = synth.ca_device(db.ca_words, dev)
         plain = torch.stack([p[:, :n] for p in synth.synth_rows_planes_ref(
             rows, ca)], dim=-1)
@@ -1125,7 +1153,7 @@ def phase_dryrun(dev) -> None:
         + ": all hold, byte for byte")
 
 
-def phase_rows_timing(torch, dev, sass_ops) -> dict:
+def phase_rows_timing(torch, dev) -> dict:
     """Phase 13d: kernel and plain-version ms of each row mode on one
     100-epoch 2.6 Msps batch at the widths phase 13a gives them (planes:
     the 16 DeviceBatch channels; raw: one 8-channel chan shard of the 2x2
@@ -1138,7 +1166,7 @@ def phase_rows_timing(torch, dev, sass_ops) -> dict:
     scn = canonical_scenario(16)
     n = scn.iq_buff_size
     db = plan_batch(scn.segments[0], 0, 100, n, scn.delt)
-    rows = synth.upload(synth.pack_rows(db), dev)
+    rows = synth.upload_rows(synth.pack_rows(db), dev)
     ca = synth.ca_device(db.ca_words, dev)
     modes = (("synth_rows_planes", rows, ca, synth.synth_rows_planes,
               synth.synth_rows_planes_ref),
@@ -1158,15 +1186,18 @@ def phase_rows_timing(torch, dev, sass_ops) -> dict:
         # The data needs the (epoch, channel) pairs whose gain is not 0.
         pairs = int((r[:, 0, :, 11] != 0).sum())
         in_bytes = r.numel() * 4 + c.numel() * 4 + 2 * 512 * 4
-        bound, by = bound_ms(in_bytes, out_bytes, sass_ops[name], n, pairs)
+        ops = synth_operations(pairs * n, r.shape[0] * n,
+                               name == "synth_rows_planes")
+        bound, by = bound_ms(in_bytes, out_bytes, ops)
         times[name] = (ms, plain_ms, bound, by)
         say(f"phase 13d timing {name}: {r.shape[0]} epochs x {n} samples x "
             f"{r.shape[2]} channels ({pairs} (epoch, channel) pairs with "
             f"gain), {r.numel() * 4} bytes of rows: kernel {ms:.4f} ms "
             f"({r.shape[0] * n / ms / 1e6:.3f} Gsamples/s; best of 20), plain "
-            f"{plain_ms:.3f} ms, bound {bound:.3f} ms by {by} "
-            f"({sass_ops[name]} instructions per (sample, channel), "
-            f"{out_bytes} bytes out), kernel = plain bit for bit")
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by} ({ops} "
+            f"operations, {out_bytes} bytes out; {bound / ms:.1%} of it; "
+            f"{share_without_wrap(ops, pairs * n, ms):.1%} at 13 operations "
+            f"per pair), kernel = plain bit for bit")
     # The closed form on the same batch: what impl closed spends per batch.
     tensors = synth_closed.batch_tensors(db, dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1293,7 +1324,7 @@ def main() -> int:
               ("2x2", make_mesh(2, 2, [dev] * 4)))
     nav_launches, nav_rt, nav_sharded = phase_nav_canonical(
         torch, scns, dev, meshes)
-    times, ratios = phase_timing(torch, dev, sass_ops)
+    times, ratios = phase_timing(torch, dev)
     sharded = {}
     for label, mesh in meshes:
         sharded[label] = canonical_runs(
@@ -1307,7 +1338,7 @@ def main() -> int:
                                                  meshes[1][1])
     closed_rt = phase_closed(torch, scns, dev, meshes[1][1], wire_stats)
     phase_dryrun(dev)
-    row_times = phase_rows_timing(torch, dev, sass_ops)
+    row_times = phase_rows_timing(torch, dev)
     phase_scaling(dev)
     day = phase_day(torch, dev)
 
@@ -1347,7 +1378,8 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                "replaces": replaces, "launches": paths[name],
                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": by, "library_ms": None}
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "design": DESIGN}
         if name == "synth_wire":
             row["max_abs_err"] = max(max_err[name], rx["max_abs_err"],
                                      day["max_abs_err"])
@@ -1376,7 +1408,8 @@ def main() -> int:
                        "source": KERNEL_SOURCE, "replaces": replaces,
                        "launches": paths[name], "max_abs_err": row_err[name],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by, "library_ms": None})
+                       "bound_by": by, "library_ms": None,
+                       "design": DESIGN})
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,7 @@ from gps_sdr_sim_tpu_torch.models.scenario import (
     ScenarioError,
     build_scenario,
 )
+from gps_sdr_sim_tpu_torch.ops import synth
 from gps_sdr_sim_tpu_torch.parallel.writer import (
     concat_shards,
     process_count,
@@ -131,7 +132,7 @@ def _merge_values(argv):
 # (duration is only checked after the loop, gpssim.c:1869-1874).
 class _SampFreqAction(argparse.Action):
     def __call__(self, parser, ns, value, option_string=None):
-        if value < 1.0e6:
+        if value < synth.MIN_SAMP_FREQ:
             _err("Invalid sampling frequency.")
         setattr(ns, self.dest, value)
 

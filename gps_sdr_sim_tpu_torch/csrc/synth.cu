@@ -22,12 +22,7 @@
 //     form: no rebase on the card, and the row parameters come from device
 //     memory, 48 bytes per (epoch, sub-block, channel) (9.75 MB for a
 //     100-epoch 2.6 Msps batch, a tenth of the planes it writes; the TPU's
-//     rows hold the same integers in 20-bit limbs, 128 bytes each). The
-//     rows carry all 16 DeviceBatch channels; the prologue keeps the ones
-//     whose gain is not 0 (a warp ballot), so inactive channels and padded
-//     epochs cost no loop trips. A zero gain adds exactly 0, so the sums
-//     are those of every channel. Like the wire form it is bounded by the
-//     integer issue rate: the loop body is the same accumulate_iq.
+//     rows hold the same integers in 20-bit limbs, 128 bytes each).
 //
 // Output modes (the template value MODE), one per K1 variant:
 //   * kPacked: quantized and packed into the final SC16/SC08/SC01 words
@@ -41,21 +36,16 @@
 //
 // The nav sign (the template value NAV), in every mode:
 //   * NAV = false, the window walk: bit floor((m0r + M) / 20) of the nav
-//     window, a floor division and a sign-filling shift per (sample,
-//     channel);
+//     window, a floor division and a sign-filling shift;
 //   * NAV = true, the mask table: the K1 `tpe > 0` variant
 //     (synth_pallas.py:377-393 body, :565-575 operand, nav_masks and
 //     nav_table_from_wire :706-733). Lane m of a channel's 128-entry table
 //     is bit clip(floor((m0 + m) / 20) - b0, 0, 31) of the window, and code
 //     period M reads lane M & 127 (M = -1 reads lane 127, as the TPU kernel
 //     does; the walk's sign fill reads the window's bit 31 there instead).
-//     The TPU kernel takes the table as a [B*C, 128] int32 operand with a
-//     block per epoch; here the block prologue builds it from the wire, as
-//     4 x 32 bits per channel in shared memory, so nothing extra goes
-//     through device memory. The lookup is one shared load and two shifts
-//     in place of the walk's division by 20 (a multiply-high and fix-ups),
-//     shift, compare and select; M is nearly uniform across a warp, so the
-//     load is a broadcast.
+//   The nav bit changes only between code periods, and a sub-block touches
+//   at most kPeriods of them, so either rule runs once per (block, channel,
+//   period) in the prologue (nav_bit); the sample loop is the same for both.
 //
 // Arithmetic contract (identical to ops/plan.py and synth_pallas.py, so the
 // output words are bit-identical):
@@ -73,19 +63,48 @@
 //   * channel sums wrap mod 2^32 like int32; (acc + 64) >> 7 is arithmetic;
 //     the int16 wrap precedes SC08's >> 4 and SC01's sign test.
 //
-// What bounds it on an H100: integer ALU issue rate. Each (sample, channel)
-// costs two 64-bit multiply-adds, one or two floor divisions, two or three
-// shared-memory lookups (C/A word, sin/cos, the nav table) and ~20 other
-// integer ops; the channel loop is kept rolled so that its instruction
-// count is the per-(sample, channel) cost (chip_smoke.py reads it from
-// cuobjdump -sass). SC16 writes 4 bytes per sample, kRaw 8 (3.1 and 6.2 GB
-// for the 300 s canonical run), which at HBM rates is far below the ALU
-// time. This first design is the simple one: one block per (sub-block,
-// epoch), 128 threads, each thread writing whole 32-bit output words, the
-// 512-entry sin/cos table, the C/A words, the nav tables and the rebased
-// channel parameters held in shared memory. It recomputes the ramps with
-// multiplies instead of stepping them, and it does not specialise on the
-// rate or the gain. Those are later work.
+// What bounds it on an H100: the integer issue rate. The algorithm needs
+// 14 operations per (sample, channel with gain): advance the code phase,
+// whole chip, its wrap into the code period, C/A bit, nav bit, their xor,
+// advance the carrier, table index, cos and sin, two gain products, two
+// signed sums; quantizing adds 4 per sample. SC16 writes 4 bytes per sample, kRaw 8, far below the ALU
+// time at HBM rates. The first design issued 57 SASS instructions
+// per (sample, channel): its channel loop sat inside the sample loop, so
+// every (sample, channel) reloaded the channel from shared memory,
+// recomputed both ramps as 64-bit multiplies, divided T by 1023 and, in the
+// walk, by 20 again. This design moves all of that out of the loop:
+//   * channel-outer, samples in registers: thread t owns the samples
+//     r = t + kThreads * k (k < kSamplesPerThread), so each warp covers 32
+//     consecutive samples per k (coalesced stores, near-broadcast shared
+//     loads), with both sums of every sample in registers; a channel's
+//     state is read once per thread;
+//   * phases stepped, not recomputed: base + t * step once per (thread,
+//     channel), then one exact add of kThreads * step per sample. The code
+//     phase's fraction is held shifted into the top 40 bits of 64, so the
+//     add's carry-out is the chip carry (add.cc / addc: three
+//     instructions); the carrier is held shifted by 24, so the table index
+//     is the top 9 bits of its high word. The same uint64 values as
+//     base + r * step: the sums stay below 2^52, nothing wraps;
+//   * no division in the loop: the prologue lays each channel's signs (C/A
+//     bit xor nav bit) out as one bit per chip, from the sub-block's first
+//     chip on, across its code periods (sign_word). The loop indexes it by
+//     the chip count since the first sample: no wrap at 1023, no nav walk;
+//   * sign in the table index: a 1024-entry table of +-(cos, sin) pairs,
+//     entry 2 * idx + sign, so the gain multiplies without a sign fix-up,
+//     and the two signs of one idx sit in neighbouring banks;
+//   * packing in the epilogue: one word (SC16, raw), one halfword (SC08,
+//     planes) per sample and lane; SC01 ORs the bits of 16 lanes into a
+//     word (__reduce_or_sync).
+// The channel loop is kept rolled; its SASS length over kSamplesPerThread
+// is what one (sample, channel) issues (chip_smoke.py phase 2 reads it with
+// cuobjdump -sass): 18.6 in every instantiation with nvcc 12.9 (298 per
+// trip), about 15 per sample and the rest the channel's per-thread setup,
+// at 72 registers and no spills. One block per (sub-block, epoch),
+// kThreads threads.
+// Domain: a channel's 2048 samples must span at most kSignWords * 32 chips,
+// i.e. code steps below 2 chips per sample (the CLI's 1 Msps floor gives
+// ~1.02); ops/synth.py refuses other wires on the host before they are
+// uploaded, and the prologue traps on one that gets here anyway.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,19 +115,30 @@ constexpr int kSubblock = 2048;  // gps_sdr_sim_tpu_torch.constants.SUBBLOCK
 constexpr int kMaxChan = 16;     // gps_sdr_sim_tpu_torch.constants.MAX_CHAN
 constexpr int kWireLanes = 12;   // gps_sdr_sim_tpu_torch.ops.plan.WIRE_LANES
 constexpr int kRowLanes = 12;    // gps_sdr_sim_tpu_torch.ops.synth.ROW_LANES
+// The schedule; ops/synth.py mirrors these (THREADS, SAMPLES_PER_THREAD,
+// SIGN_WORDS, PERIODS) in its plain model of it, schedule_sums.
 constexpr int kThreads = 128;
+constexpr int kSamplesPerThread = kSubblock / kThreads;
+constexpr int kSignWords = 128;  // sign bits per channel: 4096 chips
+constexpr int kPeriods = 6;      // code periods the sign words can reach
 constexpr int kCaLen = 1023;
 constexpr uint64_t kMask40 = (uint64_t(1) << 40) - 1;
+static_assert(kSubblock % kThreads == 0, "whole samples per thread");
 
+// One channel of one block, as the prologue leaves it in shared memory.
 struct Chan {
-  uint64_t code_base;  // fractional code phase at k0, units 2^-40 chip
-  uint64_t code_step;  // code step bits [16, 64), units 2^-40 chip
-  uint64_t carr_base;  // fractional carrier phase at k0, units 2^-40 cycle
+  uint64_t code_base;   // fraction of the code phase at sample 0, 2^-40 chip
+  uint64_t code_step;   // code step bits [16, 64), 2^-40 chip per sample
+  uint64_t carr_base;   // the same for the carrier (2^-40 cycle)
   uint64_t carr_step;
-  int32_t t_base;      // whole chips since epoch start at k0
-  int32_t m0r;         // nav ms counter modulo the 20-ms bit (m0 - 20*b0)
-  int32_t navbits;     // nav bit window starting at bit b0
+  uint64_t code_dfrac;  // (kThreads * code_step) << 24: one stride's fraction
+  uint64_t carr_d;      // (kThreads * carr_step) << 24
+  uint32_t code_dwhole; // (kThreads * code_step) >> 40: its whole chips
   int32_t gain;
+  int32_t chip_first;   // chip of sample 0 in its code period Mfirst
+  uint32_t navp;        // bit p: nav bit of code period Mfirst + p
+  int32_t n_words;      // sign words the sub-block reads
+  int32_t src;          // the channel's row of ca_words
 };
 
 // floor(a / b) for b > 0; C++ division truncates toward zero.
@@ -128,61 +158,63 @@ __device__ __forceinline__ uint64_t lanes_u64(const int32_t* w, int lane) {
   return uint64_t(uint32_t(w[lane])) | (uint64_t(uint32_t(w[lane + 1])) << 32);
 }
 
-// Word k (lanes 32k .. 32k+31) of a channel's nav mask table: bit m is the
-// nav bit of code period m0 + 32k + m, window bit
-// clip(floor((m0 + 32k + m) / 20) - b0, 0, 31). m0 >= 0 (16 bits), so the
-// division needs no floor fix-up.
-__device__ __forceinline__ uint32_t nav_table_word(const int32_t* w, int k) {
-  const int32_t m0 = w[9] & 0xFFFF, b0 = w[9] >> 16, navbits = w[10];
-  uint32_t word = 0;
-#pragma unroll
-  for (int m = 0; m < 32; ++m) {
-    int j = (m0 + 32 * k + m) / 20 - b0;
+// The nav bit of code period M: the window walk, or lane M & 127 of the
+// mask table (m0 >= 0 has 16 bits, so that division needs no floor fix-up).
+template <bool NAV>
+__device__ __forceinline__ uint32_t nav_bit(int M, int m0r, int m0, int b0,
+                                            int navbits) {
+  if constexpr (NAV) {
+    int j = (m0 + int(uint32_t(M) & 127u)) / 20 - b0;
     j = j < 0 ? 0 : (j > 31 ? 31 : j);
-    word |= uint32_t((navbits >> j) & 1) << m;
+    return uint32_t(navbits >> j) & 1u;
+  } else {
+    return uint32_t(shr_signfill(navbits, floor_div(m0r + M, 20))) & 1u;
   }
-  return word;
 }
 
-// Channel sums (I, Q) of in-sub-block sample r over the first n_chan
-// channels, wrapped mod 2^32 like int32. nav: the channels' mask tables
-// (4 words each; read only when NAV).
+// Fill the fields that follow from the sub-block's phases: where its first
+// chip lies, how many sign words it reads, the nav bit of each code period
+// it can reach, and one stride of each phase.
 template <bool NAV>
-__device__ __forceinline__ void accumulate_iq(int r, int n_chan,
-                                              const Chan* ch,
-                                              const uint32_t* ca,
-                                              const uint32_t* nav,
-                                              const int32_t* sin_t,
-                                              const int32_t* cos_t,
-                                              uint32_t* i_acc,
-                                              uint32_t* q_acc) {
-  uint32_t iacc = 0, qacc = 0;
-#pragma unroll 1
-  for (int c = 0; c < n_chan; ++c) {
-    const Chan& p = ch[c];
-    uint64_t code = p.code_base + uint64_t(r) * p.code_step;
-    int T = int(uint32_t(p.t_base) + uint32_t(code >> 40));
-    int M = floor_div(T, kCaLen);
-    int chip = T - kCaLen * M;
-    int ca_bit = (ca[c * 32 + (chip >> 5)] >> (chip & 31)) & 1;
-    int nav_bit;
-    if constexpr (NAV) {
-      const uint32_t lane = uint32_t(M) & 127u;
-      nav_bit = int(nav[c * 4 + (lane >> 5)] >> (lane & 31u)) & 1;
-    } else {
-      int j = floor_div(p.m0r + M, 20);
-      nav_bit = shr_signfill(p.navbits, j) & 1;
-    }
-    uint64_t carr = p.carr_base + uint64_t(r) * p.carr_step;
-    int idx = int(carr >> 31) & 0x1FF;
-    uint32_t neg = 0u - uint32_t(ca_bit ^ nav_bit);  // 0 or all ones
-    uint32_t vc = uint32_t(p.gain) * uint32_t(cos_t[idx]);
-    uint32_t vs = uint32_t(p.gain) * uint32_t(sin_t[idx]);
-    iacc += (vc ^ neg) - neg;
-    qacc += (vs ^ neg) - neg;
+__device__ __forceinline__ void finish_chan(Chan& p, int t_base, int m0r,
+                                            int m0, int b0, int navbits) {
+  const int m_first = floor_div(t_base, kCaLen);
+  p.chip_first = t_base - kCaLen * m_first;
+  const uint64_t span = (p.code_base + uint64_t(kSubblock - 1) * p.code_step)
+                        >> 40;
+  if (span >= uint64_t(kSignWords) * 32) __trap();  // outside the domain
+  p.n_words = int(span >> 5) + 1;
+  p.navp = 0;
+  for (int q = 0; q < kPeriods; ++q) {
+    p.navp |= nav_bit<NAV>(m_first + q, m0r, m0, b0, navbits) << q;
   }
-  *i_acc = iacc;
-  *q_acc = qacc;
+  const uint64_t d = uint64_t(kThreads) * p.code_step;
+  p.code_dfrac = d << 24;
+  p.code_dwhole = uint32_t(d >> 40);
+  p.carr_d = (uint64_t(kThreads) * p.carr_step) << 24;
+}
+
+// Sign word k of channel p: bit j is C/A bit xor nav bit of the chip
+// chip_first + 32 k + j chips after the start of code period Mfirst, which
+// lies in period Mfirst + (that / 1023). A word crosses at most one period
+// end; chips past it restart at chip 0 of the next period.
+__device__ __forceinline__ uint32_t sign_word(const Chan& p,
+                                              const int32_t* ca, int k) {
+  const uint32_t pos = uint32_t(p.chip_first) + 32u * uint32_t(k);
+  const uint32_t period = pos / kCaLen;
+  const uint32_t chip = pos - kCaLen * period;
+  const uint32_t a = chip >> 5;
+  uint32_t w = __funnelshift_r(uint32_t(ca[a]), uint32_t(ca[(a + 1) & 31]),
+                               chip);
+  w ^= 0u - ((p.navp >> period) & 1u);
+  const uint32_t left = kCaLen - chip;  // chips left in this period
+  if (left < 32) {
+    const uint32_t low = (1u << left) - 1u;
+    const uint32_t next = (uint32_t(ca[0]) << left) ^
+                          (0u - ((p.navp >> (period + 1)) & 1u));
+    w = (w & low) | (next & ~low);
+  }
+  return w;
 }
 
 // (acc + 64) >> 7, arithmetic, before the int16 wrap.
@@ -190,190 +222,176 @@ __device__ __forceinline__ int32_t quantize(uint32_t acc) {
   return int32_t(acc + 64u) >> 7;
 }
 
-// Quantized (I, Q) of in-sub-block sample r, before the int16 wrap.
-template <bool NAV>
-__device__ __forceinline__ void sample_iq(int r, int n_chan, const Chan* ch,
-                                          const uint32_t* ca,
-                                          const uint32_t* nav,
-                                          const int32_t* sin_t,
-                                          const int32_t* cos_t, int32_t* i_out,
-                                          int32_t* q_out) {
-  uint32_t iacc, qacc;
-  accumulate_iq<NAV>(r, n_chan, ch, ca, nav, sin_t, cos_t, &iacc, &qacc);
-  *i_out = quantize(iacc);
-  *q_out = quantize(qacc);
-}
-
 __device__ __forceinline__ int32_t wrap16(int32_t v) { return int16_t(v); }
 
 enum Mode { kPacked = 0, kPlanes = 1, kRaw = 2 };
 
-// Output 32-bit words per sample block of kSubblock samples (per plane for
-// kPlanes and kRaw).
-template <int MODE, int FMT>
-__host__ __device__ constexpr int words_per_subblock() {
-  return MODE == kPlanes ? kSubblock / 2
-         : MODE == kRaw  ? kSubblock
-         : kSubblock / (FMT == 16 ? 1 : (FMT == 8 ? 2 : 16));
-}
-
-// Row form: fill ch[] from this block's rows (one per channel, n_chan of
-// them), the channels whose gain is not 0 first, and their C/A words into
-// ca[]; the number of them goes to *n_live. Warp 0 reads the rows (n_chan
-// <= 16) and places each kept channel by a ballot. Ends with a barrier.
-__device__ __forceinline__ void load_rows(const int32_t* __restrict__ rows,
-                                          const int32_t* __restrict__ ca_words,
-                                          int n_chan, Chan* ch, uint32_t* ca,
-                                          int* chan_of, int* n_live) {
-  if (threadIdx.x < 32) {
-    const int c = threadIdx.x;
-    Chan p;
-    bool live = false;
-    if (c < n_chan) {
-      const int32_t* w = rows + size_t(c) * kRowLanes;
-      p.code_base = lanes_u64(w, 0);
-      p.code_step = lanes_u64(w, 2);
-      p.carr_base = lanes_u64(w, 4);
-      p.carr_step = lanes_u64(w, 6);
-      p.t_base = w[8];
-      p.m0r = w[9];
-      p.navbits = w[10];
-      p.gain = w[11];
-      live = p.gain != 0;
+// Channel c of the block (c < n_chan; one thread each): its parameters
+// rebased to sub-block sb (wire) or read from its row, into *p. Returns
+// whether its gain is not 0.
+template <bool NAV, bool ROWS>
+__device__ __forceinline__ bool load_chan(const int32_t* __restrict__ params,
+                                          int param_chans, int sb, int b,
+                                          int sub_blocks, int c, Chan* p) {
+  if constexpr (ROWS) {
+    const int32_t* w =
+        params + ((size_t(b) * sub_blocks + sb) * param_chans + c) * kRowLanes;
+    p->gain = w[11];
+    if (p->gain == 0) return false;
+    p->code_base = lanes_u64(w, 0);
+    p->code_step = lanes_u64(w, 2);
+    p->carr_base = lanes_u64(w, 4);
+    p->carr_step = lanes_u64(w, 6);
+    finish_chan<false>(*p, w[8], w[9], 0, 0, w[10]);
+  } else {
+    const int32_t* w = params + (size_t(b) * param_chans + c) * kWireLanes;
+    p->gain = w[11];
+    if (p->gain == 0) return false;
+    const uint64_t k0 = uint64_t(sb) * kSubblock;
+    uint32_t carry;
+    {
+      uint64_t f = lanes_u64(w, 0), s = lanes_u64(w, 2);
+      uint64_t lo = (f & 0xFFFF) + k0 * (s & 0xFFFF);
+      uint64_t hi = (f >> 16) + k0 * (s >> 16) + (lo >> 16);
+      p->code_base = hi & kMask40;
+      p->code_step = s >> 16;
+      carry = uint32_t(hi >> 40);
     }
-    const uint32_t kept = __ballot_sync(0xFFFFFFFFu, live);
-    if (live) {
-      const int k = __popc(kept & ((1u << c) - 1u));
-      ch[k] = p;
-      chan_of[k] = c;
+    {
+      uint64_t f = lanes_u64(w, 4), s = lanes_u64(w, 6);
+      uint64_t lo = (f & 0xFFFF) + k0 * (s & 0xFFFF);
+      uint64_t hi = (f >> 16) + k0 * (s >> 16) + (lo >> 16);
+      p->carr_base = hi & kMask40;
+      p->carr_step = s >> 16;
     }
-    if (c == 0) *n_live = __popc(kept);
+    const int32_t m0 = w[9] & 0xFFFF, b0 = w[9] >> 16;
+    finish_chan<NAV>(*p, int32_t(uint32_t(w[8]) + carry), m0 - 20 * b0, m0,
+                     b0, w[10]);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < *n_live * 32; i += kThreads) {
-    ca[i] = uint32_t(ca_words[chan_of[i >> 5] * 32 + (i & 31)]);
-  }
+  p->src = c;
+  return true;
 }
 
 // One block: sub-block blockIdx.x of epoch blockIdx.y. ROWS: `params` are
 // the [B, SB, param_chans, 12] rows and every channel is summed; else the
 // [B, param_chans, 12] wire, of which the first n_chan channels are summed.
-// out: the packed words (kPacked) or the I plane; out_q: the Q plane
-// (kPlanes, kRaw; unused for kPacked).
+// Channels whose gain is 0 add exactly 0 and are skipped. out: the packed
+// words (kPacked) or the I plane; out_q: the Q plane (kPlanes, kRaw; unused
+// for kPacked).
 template <int MODE, int FMT, bool NAV, bool ROWS>
 __device__ __forceinline__ void synth_block(
     const int32_t* __restrict__ params, const int32_t* __restrict__ ca_words,
     const int32_t* __restrict__ table, int32_t* __restrict__ out,
     int32_t* __restrict__ out_q, int param_chans, int n_chan) {
-  constexpr int kWords = words_per_subblock<MODE, FMT>();
-
-  __shared__ int32_t sin_t[512];
-  __shared__ int32_t cos_t[512];
-  __shared__ uint32_t ca[kMaxChan * 32];
-  __shared__ uint32_t nav[kMaxChan * 4];
+  // Entry 2 i + s: (cos i, sin i), negated when s = 1.
+  __shared__ int2 trig[1024];
+  __shared__ uint32_t signs[kMaxChan * kSignWords];
   __shared__ Chan ch[kMaxChan];
-  __shared__ int chan_of[kMaxChan];
   __shared__ int n_live;
 
   const int sb = blockIdx.x;
   const int b = blockIdx.y;
   const int sub_blocks = gridDim.x;
+  const uint32_t t = threadIdx.x;
 
-  for (int i = threadIdx.x; i < 512; i += kThreads) {
-    sin_t[i] = table[i];
-    cos_t[i] = table[512 + i];
+  for (int i = t; i < 512; i += kThreads) {
+    const int32_t c = table[512 + i], s = table[i];
+    trig[2 * i] = make_int2(c, s);
+    trig[2 * i + 1] = make_int2(-c, -s);
   }
-  if constexpr (ROWS) {
-    load_rows(params + (size_t(b) * sub_blocks + sb) * param_chans * kRowLanes,
-              ca_words, n_chan, ch, ca, chan_of, &n_live);
-  } else {
-    for (int i = threadIdx.x; i < n_chan * 32; i += kThreads) {
-      ca[i] = uint32_t(ca_words[i]);
-    }
-    if (threadIdx.x < n_chan) {
-      const int32_t* w =
-          params + (size_t(b) * param_chans + threadIdx.x) * kWireLanes;
-      const uint64_t k0 = uint64_t(sb) * kSubblock;
-      Chan p;
-      {
-        uint64_t f = lanes_u64(w, 0), s = lanes_u64(w, 2);
-        uint64_t lo = (f & 0xFFFF) + k0 * (s & 0xFFFF);
-        uint64_t hi = (f >> 16) + k0 * (s >> 16) + (lo >> 16);
-        p.code_base = hi & kMask40;
-        p.code_step = s >> 16;
-        p.t_base = int32_t(uint32_t(w[8]) + uint32_t(hi >> 40));
-      }
-      {
-        uint64_t f = lanes_u64(w, 4), s = lanes_u64(w, 6);
-        uint64_t lo = (f & 0xFFFF) + k0 * (s & 0xFFFF);
-        uint64_t hi = (f >> 16) + k0 * (s >> 16) + (lo >> 16);
-        p.carr_base = hi & kMask40;
-        p.carr_step = s >> 16;
-      }
-      const int32_t m0 = w[9] & 0xFFFF, b0 = w[9] >> 16;
-      p.m0r = m0 - 20 * b0;
-      p.navbits = w[10];
-      p.gain = w[11];
-      ch[threadIdx.x] = p;
-    }
-    if constexpr (NAV) {
-      // Four threads per channel, one table word each (n_chan * 4 <= 64).
-      if (threadIdx.x < n_chan * 4) {
-        const int32_t* w = params + (size_t(b) * param_chans +
-                                     (threadIdx.x >> 2)) * kWireLanes;
-        nav[threadIdx.x] = nav_table_word(w, threadIdx.x & 3);
-      }
+  // Warp 0: one lane per channel; the live channels are packed first by a
+  // ballot (n_chan <= 16).
+  if (t < 32) {
+    Chan p;
+    const bool live = int(t) < n_chan &&
+        load_chan<NAV, ROWS>(params, param_chans, sb, b, sub_blocks, t, &p);
+    const uint32_t kept = __ballot_sync(0xFFFFFFFFu, live);
+    if (live) ch[__popc(kept & ((1u << t) - 1u))] = p;
+    if (t == 0) n_live = __popc(kept);
+  }
+  __syncthreads();
+  const int live = n_live;
+  // Warp w builds the sign words of channels w, w + 4, ...
+  for (int c = t >> 5; c < live; c += kThreads / 32) {
+    for (int k = t & 31; k < ch[c].n_words; k += 32) {
+      signs[c * kSignWords + k] =
+          sign_word(ch[c], ca_words + ch[c].src * 32, k);
     }
   }
   __syncthreads();
-  if constexpr (ROWS) n_chan = n_live;
 
-  const size_t row = (size_t(b) * sub_blocks + sb) * kWords;
-  int32_t* o = out + row;
-  for (int wi = threadIdx.x; wi < kWords; wi += kThreads) {
-    int32_t iv, qv;
-    if constexpr (MODE == kPlanes) {
-      // Two adjacent int16 samples per word and plane, the earlier one in
-      // the low half (little-endian int16 order).
-      uint32_t i_lo, q_lo, i_hi, q_hi;
-      accumulate_iq<NAV>(2 * wi, n_chan, ch, ca, nav, sin_t, cos_t, &i_lo,
-                         &q_lo);
-      accumulate_iq<NAV>(2 * wi + 1, n_chan, ch, ca, nav, sin_t, cos_t, &i_hi,
-                         &q_hi);
-      o[wi] = int32_t((uint32_t(quantize(i_lo)) & 0xFFFFu) |
-                      (uint32_t(quantize(i_hi)) << 16));
-      out_q[row + wi] = int32_t((uint32_t(quantize(q_lo)) & 0xFFFFu) |
-                                (uint32_t(quantize(q_hi)) << 16));
-    } else if constexpr (MODE == kRaw) {
-      uint32_t ia, qa;
-      accumulate_iq<NAV>(wi, n_chan, ch, ca, nav, sin_t, cos_t, &ia, &qa);
-      o[wi] = int32_t(ia);
-      out_q[row + wi] = int32_t(qa);
-    } else if constexpr (FMT == 16) {
-      sample_iq<NAV>(wi, n_chan, ch, ca, nav, sin_t, cos_t, &iv, &qv);
-      o[wi] = int32_t((uint32_t(iv) & 0xFFFFu) | (uint32_t(qv) << 16));
-    } else if constexpr (FMT == 8) {
-      uint32_t word = 0;
-      for (int k = 0; k < 2; ++k) {
-        sample_iq<NAV>(2 * wi + k, n_chan, ch, ca, nav, sin_t, cos_t, &iv,
-                       &qv);
-        uint32_t ib = uint32_t(wrap16(iv) >> 4) & 0xFFu;
-        uint32_t qb = uint32_t(wrap16(qv) >> 4) & 0xFFu;
-        word |= (ib | (qb << 8)) << (16 * k);
+  uint32_t iacc[kSamplesPerThread], qacc[kSamplesPerThread];
+#pragma unroll
+  for (int k = 0; k < kSamplesPerThread; ++k) iacc[k] = qacc[k] = 0;
+
+#pragma unroll 1
+  for (int c = 0; c < live; ++c) {
+    const Chan& p = ch[c];
+    const uint64_t code = p.code_base + uint64_t(t) * p.code_step;
+    uint32_t chips = uint32_t(code >> 40);  // since the sub-block's first
+    const uint64_t frac = code << 24;
+    uint32_t f_lo = uint32_t(frac), f_hi = uint32_t(frac >> 32);
+    const uint32_t d_lo = uint32_t(p.code_dfrac);
+    const uint32_t d_hi = uint32_t(p.code_dfrac >> 32);
+    const uint32_t d_whole = p.code_dwhole;
+    uint64_t carr = (p.carr_base + uint64_t(t) * p.carr_step) << 24;
+    const uint64_t carr_d = p.carr_d;
+    const uint32_t gain = uint32_t(p.gain);
+    const uint32_t* sg = signs + c * kSignWords;
+#pragma unroll
+    for (int k = 0; k < kSamplesPerThread; ++k) {
+      if (k > 0) {
+        asm("add.cc.u32 %0, %0, %3;\n\t"
+            "addc.cc.u32 %1, %1, %4;\n\t"
+            "addc.u32 %2, %2, %5;"
+            : "+r"(f_lo), "+r"(f_hi), "+r"(chips)
+            : "r"(d_lo), "r"(d_hi), "r"(d_whole));
+        carr += carr_d;
       }
-      o[wi] = int32_t(word);
+      const uint32_t w = sg[chips >> 5];
+      const uint32_t sign = __funnelshift_r(w, w, chips);  // bit 0
+      const uint32_t idx2 = ((uint32_t(carr >> 32) >> 22) & ~1u) |
+                            (sign & 1u);
+      const int2 cs = trig[idx2];
+      iacc[k] += gain * uint32_t(cs.x);
+      qacc[k] += gain * uint32_t(cs.y);
+    }
+  }
+
+  const size_t row = size_t(b) * sub_blocks + sb;
+#pragma unroll
+  for (int k = 0; k < kSamplesPerThread; ++k) {
+    const uint32_t r = t + kThreads * k;
+    const size_t at = row * kSubblock + r;  // this sample, in samples
+    if constexpr (MODE == kRaw) {
+      out[at] = int32_t(iacc[k]);
+      out_q[at] = int32_t(qacc[k]);
     } else {
-      // 16 samples, 4 per byte, MSB-first {I0,Q0,I1,Q1,I2,Q2,I3,Q3};
-      // byte k of the little-endian word holds samples 4k..4k+3.
-      uint32_t word = 0;
-      for (int k = 0; k < 16; ++k) {
-        sample_iq<NAV>(16 * wi + k, n_chan, ch, ca, nav, sin_t, cos_t, &iv,
-                       &qv);
-        int bit = 8 * (k >> 2) + 7 - 2 * (k & 3);
-        word |= uint32_t(wrap16(iv) > 0) << bit;
-        word |= uint32_t(wrap16(qv) > 0) << (bit - 1);
+      const int32_t iv = quantize(iacc[k]), qv = quantize(qacc[k]);
+      if constexpr (MODE == kPlanes) {
+        reinterpret_cast<int16_t*>(out)[at] = int16_t(iv);
+        reinterpret_cast<int16_t*>(out_q)[at] = int16_t(qv);
+      } else if constexpr (FMT == 16) {
+        out[at] = int32_t((uint32_t(iv) & 0xFFFFu) | (uint32_t(qv) << 16));
+      } else if constexpr (FMT == 8) {
+        // Little-endian: sample r's byte pair is halfword r of the row.
+        reinterpret_cast<uint16_t*>(out)[at] =
+            uint16_t((uint32_t(wrap16(iv) >> 4) & 0xFFu) |
+                     ((uint32_t(wrap16(qv) >> 4) & 0xFFu) << 8));
+      } else {
+        // 32 consecutive samples per warp, two words: each lane places its
+        // two bits (its sample is sample lane & 15 of its word), an OR over
+        // each half of the warp gathers them, lane 0 writes the word of the
+        // first 16 samples and lane 1 the next.
+        const uint32_t lane = t & 31u;
+        const uint32_t bit_i = 8 * ((lane & 15) >> 2) + 7 - 2 * (lane & 3);
+        const uint32_t first_half = lane < 16 ? ~0u : 0u;
+        const uint32_t bits = (uint32_t(wrap16(iv) > 0) << bit_i) |
+                              (uint32_t(wrap16(qv) > 0) << (bit_i - 1));
+        const uint32_t w0 = __reduce_or_sync(0xFFFFFFFFu, bits & first_half);
+        const uint32_t w1 = __reduce_or_sync(0xFFFFFFFFu, bits & ~first_half);
+        if (lane < 2) out[(at - lane) / 16 + lane] = int32_t(lane ? w1 : w0);
       }
-      o[wi] = int32_t(word);
     }
   }
 }

@@ -28,6 +28,12 @@ the runner reads GPS_SDR_SIM_NAV_GATHER (`nav_gather_enabled()`) at the
 start of each run and passes it down. On real plans the two agree; where
 T = -1 (M = -1) the table's lane 127 stands in for the walk's sign-filled
 shift, so on such wires the two may differ.
+
+The kernel takes code steps below 2 chips per sample (MAX_CODE_STEP; the
+CLI's 1 Msps floor gives ~1.02): a wire or rows bound for a card are
+checked on the host as they go up (upload_wire, upload_rows), and the
+plain versions on the CPU take any step. `schedule_sums` is the kernel's
+schedule in plain torch, for the tests.
 """
 
 from __future__ import annotations
@@ -47,6 +53,29 @@ from gps_sdr_sim_tpu_torch.ops.tables import COS_TABLE512, SIN_TABLE512
 PACK_DIV = {16: 1, 8: 2, 1: 16}
 
 _MASK40 = (1 << 40) - 1
+
+# The kernel's schedule (csrc/synth.cu kThreads, kSamplesPerThread,
+# kSignWords, kPeriods), mirrored by schedule_sums.
+THREADS = 128
+SAMPLES_PER_THREAD = SUBBLOCK // THREADS
+SIGN_WORDS = 128
+PERIODS = 6
+# The kernel's domain: a sub-block spans fewer than SIGN_WORDS * 32 chips,
+# which any code step below 2 chips per sample (2^57 on the wire's 2^56
+# scale) keeps; the CLI's 1 Msps floor gives ~1.02.
+MAX_CODE_STEP = 1 << 57
+# The CLI's floor on the sample rate, shared by the tools that take
+# --samp-freq (refuse_samp_freq): at it a code step is ~1.02 chips per
+# sample, inside the kernel's domain.
+MIN_SAMP_FREQ = 1.0e6
+
+
+def refuse_samp_freq(samp_freq) -> str | None:
+    """The error line for a --samp-freq below MIN_SAMP_FREQ, or None."""
+    if samp_freq is not None and samp_freq < MIN_SAMP_FREQ:
+        return (f"ERROR: --samp-freq must be at least {MIN_SAMP_FREQ:g} "
+                f"(the CLI's floor).")
+    return None
 
 # Launches of the hand-written kernels, counted where the wrapper launches
 # them: one key per output mode of the wire form, one per mode of its
@@ -120,7 +149,7 @@ def stage_epochs(eb, device) -> Staged:
     if sys.byteorder != "little":
         raise RuntimeError("the epoch wire is a little-endian byte view")
     device = torch.device(device)
-    return Staged(upload(pack_epoch_wire(eb), device),
+    return Staged(upload_wire(pack_epoch_wire(eb), device),
                   ca_device(eb.ca_words, device), max(eb.n_chan, 1))
 
 
@@ -133,6 +162,39 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def _lanes_i64(a: np.ndarray, lane: int) -> np.ndarray:
+    """The int64 in lanes (lane, lane + 1) of an int32 wire or row array."""
+    return np.ascontiguousarray(a[..., lane:lane + 2]).view(np.int64)[..., 0]
+
+
+def check_code_steps(code_step: np.ndarray, gain: np.ndarray,
+                     frac_bits: int = 56) -> None:
+    """Raise ValueError if a channel with gain has a code step outside the
+    kernel's domain, [0, MAX_CODE_STEP) on the wire's 2^56 scale (steps
+    with `frac_bits` fraction bits: 56 on the wire, 40 in a row). Checked on
+    the host before a wire or rows go up to a card, so the kernel never
+    meets one (its prologue would trap)."""
+    code_step = np.asarray(code_step)
+    bad = (np.asarray(gain) != 0) & (
+        (code_step < 0) | (code_step >= MAX_CODE_STEP >> (56 - frac_bits)))
+    if bad.any():
+        worst = float(np.abs(code_step[bad].astype(np.float64)).max())
+        raise ValueError(
+            f"code step {worst / 2.0**frac_bits:.4f} chips per sample is "
+            f"outside the CUDA kernel's domain (below "
+            f"{MAX_CODE_STEP / 2.0**56:g}); the CLI's 1 Msps floor gives "
+            f"~1.02")
+
+
+def upload_wire(wire: np.ndarray, device) -> torch.Tensor:
+    """upload() of a [B, C, 12] wire (plan.pack_epoch_wire). Bound for a
+    card, a wire with a channel outside the kernel's domain is refused
+    first (check_code_steps); the plain version on the CPU takes any."""
+    if torch.device(device).type == "cuda":
+        check_code_steps(_lanes_i64(wire, 2), wire[..., 11])
+    return upload(wire, device)
+
+
 # ---------------------------------------------------------------------------
 # The row form: one rebased parameter row per (epoch, sub-block, channel).
 # ---------------------------------------------------------------------------
@@ -143,6 +205,14 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
 # little-endian (low word first); 8 t_base (whole chips since the epoch
 # start at the sub-block), 9 m0r (m0 - 20 * b0), 10 navbits, 11 gain.
 ROW_LANES = 12
+
+
+def upload_rows(rows: np.ndarray, device) -> torch.Tensor:
+    """upload() of [B, SB, C, ROW_LANES] rows (pack_rows), refused first
+    like upload_wire when bound for a card."""
+    if torch.device(device).type == "cuda":
+        check_code_steps(_lanes_i64(rows, 2), rows[..., 11], frac_bits=40)
+    return upload(rows, device)
 
 
 def _limbs_u64(limbs: np.ndarray) -> np.ndarray:
@@ -290,24 +360,142 @@ def _channel_sums(f: dict, ca_words, n_chan: int, masks=None):
     return iacc, qacc
 
 
-def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int,
-                   nav_gather: bool = False):
-    """Channel sums (I, Q) over the first n_chan channels of a wire, int64
-    [B, SB, SUBBLOCK], before the int32 wrap: the exact rebase to each
-    sub-block, then _channel_sums. nav_gather: the mask-table variant."""
+def _wire_fields(wire, sub_blocks: int) -> dict:
+    """The per-(epoch, sub-block, channel) fields of _channel_sums, int64
+    [B, SB, C] or [B, 1, C], from a [B, C, 12] wire: the exact rebase to
+    each sub-block (csrc/synth.cu load_chan)."""
     u = {k: v[:, None, :] for k, v in _unpack(wire).items()}  # [B, 1, C]
     k0 = (torch.arange(sub_blocks, device=wire.device, dtype=torch.int64)
           * SUBBLOCK)[None, :, None]                 # [1, SB, 1]
     code_base, carry = rebase(u["code_f"], u["code_s"], k0)
     carr_base, _ = rebase(u["carr_f"], u["carr_s"], k0)
-    f = dict(code_base=code_base, code_step=u["code_s"] >> 16,
-             carr_base=carr_base, carr_step=u["carr_s"] >> 16,
-             t_base=u["t0"] + carry, m0r=u["m0r"], navbits=u["navbits"],
-             gain=u["gain"])
-    masks = (nav_table_from_wire(wire).reshape(
+    return dict(code_base=code_base, code_step=u["code_s"] >> 16,
+                carr_base=carr_base, carr_step=u["carr_s"] >> 16,
+                t_base=u["t0"] + carry, m0r=u["m0r"], navbits=u["navbits"],
+                gain=u["gain"])
+
+
+def _wire_masks(wire, nav_gather: bool):
+    """[B, C, 128] nav masks of a wire for the mask-table variant, else
+    None (the window walk)."""
+    if not nav_gather:
+        return None
+    return nav_table_from_wire(wire).reshape(
         wire.shape[0], wire.shape[1], 128).to(torch.int64)
-        if nav_gather else None)
-    return _channel_sums(f, ca_words, n_chan, masks)
+
+
+def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int,
+                   nav_gather: bool = False):
+    """Channel sums (I, Q) over the first n_chan channels of a wire, int64
+    [B, SB, SUBBLOCK], before the int32 wrap: the exact rebase to each
+    sub-block, then _channel_sums. nav_gather: the mask-table variant."""
+    return _channel_sums(_wire_fields(wire, sub_blocks), ca_words, n_chan,
+                         _wire_masks(wire, nav_gather))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's schedule in plain torch, for the tests: the same channel
+# sums as _channel_sums, computed the way csrc/synth.cu computes them.
+# ---------------------------------------------------------------------------
+
+
+def sign_words(f: dict, ca_words, n_chan: int, masks=None):
+    """The sign words of csrc/synth.cu's block prologue (nav_bit,
+    finish_chan and sign_word, csrc/synth.cu:163-218; built at :314-320)
+    for the first n_chan channels of the fields `f` of
+    _channel_sums: ([B, SB, n_chan, SIGN_WORDS] int64 words holding uint32
+    values, [B, SB, n_chan] words read). Bit j of word k is C/A bit xor
+    nav bit of the chip chip_first + 32 k + j chips after the start of the
+    sub-block's first code period Mfirst: one bit per chip of the sub-block,
+    across its code periods. The nav bit of each of the PERIODS periods
+    from Mfirst follows the walk, or with `masks` ([B, C, 128]) lane
+    M & 127. Words past those read are 0. Raises ValueError where a
+    sub-block spans more chips than SIGN_WORDS * 32 (the kernel traps)."""
+    B, SB = f["code_base"].shape[:2]
+    dev = ca_words.device
+
+    def col(name):                                   # [B, SB, n]
+        return f[name][:, :, :n_chan].expand(B, SB, n_chan)
+
+    t_base = _wrap32(col("t_base"))
+    m_first = floor_div(t_base, CA_SEQ_LEN)
+    chip_first = t_base - CA_SEQ_LEN * m_first
+    span = (col("code_base") + (SUBBLOCK - 1) * col("code_step")) >> 40
+    if bool((span >= SIGN_WORDS * 32).any()):
+        raise ValueError(f"a sub-block spans {int(span.max()) + 1} chips, "
+                         f"more than the kernel's {SIGN_WORDS * 32}")
+    n_words = (span >> 5) + 1
+    M = m_first[..., None] + torch.arange(PERIODS, device=dev)
+    if masks is None:
+        nav = shr_signfill(col("navbits")[..., None],
+                           floor_div(col("m0r")[..., None] + M, 20)) & 1
+    else:
+        lanes = masks[:, None, :n_chan].expand(B, SB, n_chan, 128)
+        nav = torch.gather(lanes, 3, M & 127) & 1    # [B, SB, n, PERIODS]
+    k = torch.arange(SIGN_WORDS, device=dev)
+    pos = chip_first[..., None] + 32 * k             # [B, SB, n, W]
+    period = pos // CA_SEQ_LEN
+    chip = pos - CA_SEQ_LEN * period
+    ca = (ca_words[:n_chan].to(torch.int64) & 0xFFFFFFFF)[None, None].expand(
+        B, SB, n_chan, 32)
+    a = chip >> 5
+    pair = (torch.gather(ca, 3, (a + 1) & 31) << 32) | torch.gather(ca, 3, a)
+    word = (pair >> (chip & 31)) & 0xFFFFFFFF
+    word ^= torch.gather(nav, 3, period) * 0xFFFFFFFF
+    left = (CA_SEQ_LEN - chip).clamp(max=32)         # chips left in period
+    low = (1 << left) - 1
+    nxt = ((ca[..., :1] << left) & 0xFFFFFFFF) ^ (
+        torch.gather(nav, 3, period + 1) * 0xFFFFFFFF)
+    word = (word & low) | (nxt & ~low & 0xFFFFFFFF)
+    return torch.where(k < n_words[..., None], word, 0), n_words
+
+
+def schedule_sums(wire, ca_words, n_chan: int, sub_blocks: int,
+                  nav_gather: bool = False):
+    """Channel sums (I, Q) of a wire, int64 [B, SB, SUBBLOCK] before the
+    int32 wrap, in csrc/synth.cu's schedule (synth_block, its table at
+    :287-301 and its channel loop at :327-359): thread t of
+    THREADS owns samples t + THREADS * k, k < SAMPLES_PER_THREAD; per
+    channel it computes its first phases once and then steps them by
+    THREADS * step exactly (the kernel's add.cc / addc chain on the
+    fraction held in the top 40 bits of 64 carries into the chip count as
+    the carry of a 40-bit fraction does here); the sign comes from the
+    sign words (sign_words) at the chip count since the sub-block's first
+    sample, and selects entry 2 * idx + sign of a table of +-(cos, sin).
+    Used by the tests only, to hold the schedule to _channel_sums."""
+    f = _wire_fields(wire, sub_blocks)
+    dev = ca_words.device
+    words, _ = sign_words(f, ca_words, n_chan, _wire_masks(wire, nav_gather))
+    B, SB = f["code_base"].shape[:2]
+    tbl = trig_table(dev).to(torch.int64)
+    pairs = torch.stack([tbl[1], tbl[0]], dim=-1)    # (cos, sin)
+    trig = torch.stack([pairs, -pairs], dim=1).reshape(1024, 2)
+    t = torch.arange(THREADS, device=dev, dtype=torch.int64)
+    iacc = torch.zeros((B, SB, SAMPLES_PER_THREAD, THREADS),
+                       dtype=torch.int64, device=dev)
+    qacc = torch.zeros_like(iacc)
+    for c in range(n_chan):
+        def col(name):                               # [B, SB or 1, 1]
+            return f[name][:, :, c, None]
+
+        code = col("code_base") + t * col("code_step")
+        chips, frac = code >> 40, code & _MASK40
+        d = THREADS * col("code_step")
+        carr = (col("carr_base") + t * col("carr_step")) & _MASK40
+        carr_d = (THREADS * col("carr_step")) & _MASK40
+        wc = words[:, :, c].expand(B, SB, SIGN_WORDS)
+        for k in range(SAMPLES_PER_THREAD):
+            if k:
+                frac = frac + (d & _MASK40)
+                chips = chips + (d >> 40) + (frac >> 40)
+                frac = frac & _MASK40
+                carr = (carr + carr_d) & _MASK40
+            w = torch.gather(wc, 2, (chips >> 5).expand(B, SB, THREADS))
+            sign = (w >> (chips & 31)) & 1
+            cs = trig[((carr >> 30) & ~1) | sign]     # [B, SB, T, 2]
+            iacc[:, :, k] += col("gain") * cs[..., 0]
+            qacc[:, :, k] += col("gain") * cs[..., 1]
+    return (iacc.reshape(B, SB, SUBBLOCK), qacc.reshape(B, SB, SUBBLOCK))
 
 
 def _quantize_acc(acc: torch.Tensor) -> torch.Tensor:
@@ -591,6 +779,6 @@ def synth_batch(db, n_out: int, device) -> torch.Tensor:
     gps_sdr_sim_tpu/ops/synth_pallas.py:synth_batch. The rows go up pinned
     and without blocking the host."""
     device = torch.device(device)
-    i16, q16 = synth_rows_planes(upload(pack_rows(db), device),
+    i16, q16 = synth_rows_planes(upload_rows(pack_rows(db), device),
                                  ca_device(db.ca_words, device))
     return torch.stack([i16[:, :n_out], q16[:, :n_out]], dim=-1)

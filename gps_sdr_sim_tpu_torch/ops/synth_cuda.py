@@ -51,33 +51,117 @@ def library_path(source: pathlib.Path = SOURCE) -> pathlib.Path:
     return BUILD_DIR / f"{source.stem}_{digest[:16]}.so"
 
 
-def build(source: pathlib.Path = SOURCE,
-          verbose: bool = False) -> pathlib.Path:
+def build(source: pathlib.Path = SOURCE) -> pathlib.Path:
     """Compile `source` into its library if this source has not been built
-    yet; returns the library's path. verbose: print what -Xptxas -v says
-    (registers, shared memory, spills)."""
+    yet; returns the library's path. What -Xptxas -v says (registers,
+    shared memory, spills of each kernel) goes to build_log(library)."""
     lib = library_path(source)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)  # atomic: concurrent builds race safely
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build_log(lib: pathlib.Path) -> str:
+    """The compiler's output (-Xptxas -v) of a library that build() made."""
+    return lib.with_suffix(".log").read_text()
+
+
+def ptxas_usage(text: str) -> dict:
+    """{mangled kernel name: {"registers", "smem_bytes", "spill_stores",
+    "spill_loads"}} from the text of -Xptxas -v."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[name].update(registers=int(m.group(1)),
+                               smem_bytes=int(smem.group(1)) if smem else 0)
+            name = None
+    return usage
+
+
+# The output mode and format of each synth_wire_kernel<MODE, FMT, NAV>
+# instantiation, by wrapper (the launch-count key), and of each
+# synth_rows_kernel<MODE>.
+_WIRE_KEYS = {("0", "16"): "synth_wire/16", ("0", "8"): "synth_wire/8",
+              ("0", "1"): "synth_wire/1", ("1", "0"): "synth_wire_planes",
+              ("2", "0"): "synth_wire_raw"}
+_ROW_KEYS = {"1": "synth_rows_planes", "2": "synth_rows_raw"}
+# Samples one thread owns, so one trip of its channel loop covers
+# (csrc/synth.cu kSamplesPerThread).
+SAMPLES_PER_TRIP = 16
+
+
+def instantiation_key(mangled: str):
+    """The key of a synthesis kernel instantiation (synth_wire/16,
+    synth_wire/8, synth_wire/1, synth_wire_planes, synth_wire_raw, the same
+    with _nav for the mask-table variant, synth_rows_planes,
+    synth_rows_raw), or None for another function."""
+    m = re.match(r"\S*synth_wire_kernelILi(\d)ELi(\d+)ELb([01])E", mangled)
+    if m:
+        key = _WIRE_KEYS[m.groups()[:2]]
+        if m.group(3) == "0":
+            return key
+        base, sep, fmt = key.partition("/")
+        return f"{base}_nav{sep}{fmt}"
+    r = re.match(r"\S*synth_rows_kernelILi(\d)E", mangled)
+    return _ROW_KEYS[r.group(1)] if r else None
+
+
+def all_instantiation_keys() -> list:
+    keys = list(_WIRE_KEYS.values())
+    keys += [instantiation_key(f"synth_wire_kernelILi{m}ELi{f}ELb1E")
+             for m, f in _WIRE_KEYS]
+    return keys + list(_ROW_KEYS.values())
+
+
+def channel_loop_instructions(loops: dict) -> dict:
+    """SASS instructions per (sample, channel) of each synthesis
+    instantiation, from sass_loops: its channel loop is the loop that holds
+    the most shared-memory loads (two per sample, plus the channel's
+    state), kept rolled (csrc/synth.cu), and one trip covers the
+    SAMPLES_PER_TRIP samples of a thread; so its length over
+    SAMPLES_PER_TRIP is what one (sample, channel) issues, the channel's
+    per-thread setup included. Keys as instantiation_key."""
+    counts = {}
+    for fn, found in loops.items():
+        key = instantiation_key(fn)
+        if key is None:
+            continue
+        loads = [sum(o.startswith("LDS") for o in loop) for loop in found]
+        if not loads or max(loads) < 2 * SAMPLES_PER_TRIP:
+            raise AssertionError(f"no channel loop found in {fn}")
+        loop = found[loads.index(max(loads))]
+        counts[key] = len(loop) / SAMPLES_PER_TRIP
+    if sorted(counts) != sorted(all_instantiation_keys()):
+        raise AssertionError(f"SASS holds kernels {sorted(counts)}")
+    return counts
 
 
 def sass(lib: pathlib.Path) -> str:

@@ -89,7 +89,7 @@ def synth_epochs_sharded(eb, n_out: int, mesh: Mesh, plain: bool = False,
             break
         outs = []
         for c, dev in enumerate(row):
-            w = synth.upload(
+            w = synth.upload_wire(
                 wire[e0:e0 + b_loc, c * c_loc:(c + 1) * c_loc], dev)
             k = synth.ca_device(ca[c * c_loc:(c + 1) * c_loc], dev)
             outs.append(kernel(w, k, c_loc, n_out, nav_gather))
@@ -197,7 +197,7 @@ def synth_rows_sharded(db: DeviceBatch, n_out: int, mesh: Mesh) -> list:
         synth.synth_rows_raw
     launched = []
     for dev0, valid, blocks in _shards(db, mesh):
-        outs = [kernel(synth.upload(synth.pack_rows(blk), dev),
+        outs = [kernel(synth.upload_rows(synth.pack_rows(blk), dev),
                        synth.ca_device(blk.ca_words, dev))
                 for dev, blk in blocks]
         launched.append((dev0, valid, outs))

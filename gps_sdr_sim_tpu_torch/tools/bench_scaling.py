@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from gps_sdr_sim_tpu_torch.models.scenario import ScenarioConfig, build_scenario
+from gps_sdr_sim_tpu_torch.ops import synth
 from gps_sdr_sim_tpu_torch.ops.plan import plan_batch, plan_epochs
 from gps_sdr_sim_tpu_torch.parallel import (
     make_mesh,
@@ -259,6 +260,9 @@ def main(argv=None) -> int:
                     help="also write the rows to this file")
     ns = ap.parse_args(argv)
 
+    if (err := synth.refuse_samp_freq(ns.samp_freq)) is not None:
+        print(err, file=sys.stderr)
+        return 1
     if ns.multihost:
         rows = multihost_sweep(
             [int(v) for v in ns.multihost.split(",")], ns.impl, ns.device,

@@ -590,6 +590,9 @@ def main(argv=None) -> int:
     ap.add_argument("--oracle-blocks-file",
                     default=str(BUILD / "dayrun_oracle_blocks.npz"))
     ns = ap.parse_args(argv)
+    if (err := synth.refuse_samp_freq(ns.samp_freq)) is not None:
+        print(err, file=sys.stderr)
+        return 1
     # synth_day checks the synth phase's counts; the others sample blocks.
     if ns.phase != "synth" and ns.block_epochs < 1:
         print("ERROR: --block-epochs must be at least 1.", file=sys.stderr)

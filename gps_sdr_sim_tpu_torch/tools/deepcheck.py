@@ -41,6 +41,7 @@ import numpy as np
 
 from gps_sdr_sim_tpu_torch.constants import R2D
 from gps_sdr_sim_tpu_torch.models.scenario import ScenarioConfig, build_scenario
+from gps_sdr_sim_tpu_torch.ops import synth
 from gps_sdr_sim_tpu_torch.runner import run_epoch_range
 from gps_sdr_sim_tpu_torch.testing import NAV, ROOT
 from gps_sdr_sim_tpu_torch.utils.coord import llh2xyz
@@ -154,6 +155,9 @@ def main(argv=None) -> int:
                     help="directory of the C reference's gpssim.c/.h")
     ap.add_argument("--json", default="")
     ns = ap.parse_args(argv)
+    if (err := synth.refuse_samp_freq(ns.samp_freq)) is not None:
+        print(err, file=sys.stderr)
+        return 1
     if ns.block_epochs < 1:
         print("ERROR: --block-epochs must be at least 1.", file=sys.stderr)
         return 1

@@ -47,6 +47,31 @@ def test_cuda_kernel_matches_plain_version(fmt):
 
 
 @pytest.mark.gpu
+def test_cuda_kernel_matches_plain_version_at_the_domain_edge():
+    """Code steps just below 2 chips per sample: a sub-block reads the most
+    sign words the kernel holds, in every output mode and nav variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    wire, ca, n_chan = random_wire(5, n_epochs=3, max_gain=400)
+    wire[..., 2:4] = np.full(wire.shape[:2], synth.MAX_CODE_STEP - 1,
+                             np.int64).view(np.int32).reshape(
+                                 *wire.shape[:2], 2)
+    w, c = torch.from_numpy(wire).to(dev), torch.from_numpy(ca).to(dev)
+    for nav in (False, True):
+        for fmt in (16, 8, 1):
+            assert torch.equal(synth.synth_wire(w, c, n_chan, 5000, fmt, nav),
+                               synth.synth_wire_ref(w, c, n_chan, 5000, fmt,
+                                                    nav))
+        for mode in ("planes", "raw"):
+            got = getattr(synth, f"synth_wire_{mode}")(w, c, n_chan, 5000,
+                                                       nav)
+            want = getattr(synth, f"synth_wire_{mode}_ref")(w, c, n_chan,
+                                                            5000, nav)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
 def test_runner_on_a_card_other_than_the_current_one():
     """cuda:N with N > 0: staging, kernel and readback all go to that card's
     stream, and the writer waits for it, so the bytes equal the CPU run's."""

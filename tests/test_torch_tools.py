@@ -32,7 +32,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gps_sdr_sim_tpu.cli import main as jax_main
 from gps_sdr_sim_tpu_torch.cli import main
 from gps_sdr_sim_tpu.utils import playerfmt as jax_playerfmt
-from gps_sdr_sim_tpu_torch.ops import synth_cuda
+from gps_sdr_sim_tpu_torch.ops import synth, synth_cuda
 from gps_sdr_sim_tpu_torch.ops.quantize import pack_sc01
 from gps_sdr_sim_tpu_torch.testing import ROOT
 from gps_sdr_sim_tpu_torch.tools import (
@@ -127,6 +127,71 @@ def test_sass_loop_reader():
     counts = vpu_peak.round_instructions(synth_cuda.sass_loops(text))
     assert counts == {name: 2 * k + 4 for k, name in enumerate(names)}
 
+    # The synthesis kernels: a prologue loop with few shared loads, then the
+    # rolled channel loop, which loads the channel's state and then, per
+    # sample of the thread, a sign word and a trig pair; the count is its
+    # length over the samples one trip covers.
+    per_sample = ["IADD3 R8, P0, R8, R9, RZ", "IADD3.X R10, R10, R11, RZ",
+                  "SHF.R.U32.HI R12, RZ, 0x5, R10", "LDS R13, [R12]",
+                  "SHF.R.W.U32 R13, R13, R10, R13",
+                  "LOP3.LUT R14, R15, 0x1, R13, 0xe2, !PT",
+                  "LDS.64 R16, [R14]", "IMAD R20, R5, R16, R20"]
+    wire = {(0, 16): "synth_wire/16", (0, 8): "synth_wire/8",
+            (0, 1): "synth_wire/1", (1, 0): "synth_wire_planes",
+            (2, 0): "synth_wire_raw"}
+    kernels = {}
+    for (mode, fmt), key in wire.items():
+        for nav in (0, 1):
+            name = (f"_ZN12_GLOBAL__N_117synth_wire_kernelILi{mode}ELi{fmt}"
+                    f"ELb{nav}EEEvPKiS2_S2_PiS3_ii")
+            kernels[name] = synth_cuda.instantiation_key(name)
+    for mode, key in ((1, "synth_rows_planes"), (2, "synth_rows_raw")):
+        kernels[f"_ZN12_GLOBAL__N_117synth_rows_kernelILi{mode}EEEvPKiS2_S2_"
+                f"PiS3_i"] = key
+    assert sorted(kernels.values()) == sorted(
+        synth_cuda.all_instantiation_keys())
+    text, want = "", {}
+    for k, (name, key) in enumerate(kernels.items()):
+        setup = ["LDS.64 R2, [UR4]"] * (k + 1)
+        prologue = ["LDS R3, [R4]", "STS [R5], R3"]
+        ops = ["MOV R1, c[0x0][0x28]", *prologue, "@P1 BRA 0x10",
+               *setup, *per_sample * synth_cuda.SAMPLES_PER_TRIP,
+               "ISETP.NE.AND P0, PT, R5, RZ, PT"]
+        ops += [f"@P0 BRA {hex(16 * 4)}", "EXIT"]
+        ops.append(f"BRA {hex(16 * len(ops))}")
+        text += "\n".join([f"        Function : {name}"] + [
+            f"        /*{16 * i:04x}*/                   {op} ;"
+            for i, op in enumerate(ops)]) + "\n"
+        want[key] = (len(setup) + 2 + len(per_sample)
+                     * synth_cuda.SAMPLES_PER_TRIP) / synth_cuda.SAMPLES_PER_TRIP
+    assert synth_cuda.channel_loop_instructions(
+        synth_cuda.sass_loops(text)) == want
+    with pytest.raises(AssertionError, match="SASS holds kernels"):
+        synth_cuda.channel_loop_instructions(synth_cuda.sass_loops(
+            text.split("        Function : ")[0] + "".join(
+                "        Function : " + f for f in
+                text.split("        Function : ")[1:-1])))
+
+
+def test_ptxas_usage_reader():
+    """Registers, shared memory and spills of each kernel from -Xptxas -v,
+    keyed by the synthesis instantiation they belong to."""
+    name = ("_ZN40_GLOBAL__N__9e8a86ad_8_synth_cu_1b10364517synth_wire_kernel"
+            "ILi2ELi0ELb1EEEvPKiS2_S2_PiS3_ii")
+    text = (
+        "ptxas info    : 0 bytes gmem\n"
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 72 registers, used 1 barriers, 17540 bytes "
+        "smem\n"
+        "ptxas info    : Compile time = 77.374 ms\n")
+    usage = synth_cuda.ptxas_usage(text)
+    assert usage == {name: {"registers": 72, "smem_bytes": 17540,
+                            "spill_stores": 8, "spill_loads": 4}}
+    assert synth_cuda.instantiation_key(name) == "synth_wire_raw_nav"
+    assert synth_cuda.instantiation_key("vpu_peak_kernel") is None
+
 
 def test_vpu_peak_refuses_bad_operands():
     seed, table = vpu_peak.inputs("cpu")
@@ -151,6 +216,18 @@ def test_ab_kernel_cpu_plumbing(tmp_path, capsys):
     assert all(len(v) == 2 for v in line["reps_s"].values())
     assert line["b_over_a"] == line["best_s"]["nav_gather"] / \
         line["best_s"]["default"]
+
+
+@pytest.mark.parametrize("tool", ["dayrun", "deepcheck", "bench_scaling"])
+def test_tools_refuse_rates_below_the_cli_floor(capsys, tool):
+    """A --samp-freq below the CLI's 1 Msps floor is an ERROR line and exit
+    1 before any work: lower rates leave the CUDA kernel's domain of code
+    steps, so a card would trap on them. The floor itself is taken."""
+    mod = importlib.import_module(f"gps_sdr_sim_tpu_torch.tools.{tool}")
+    assert mod.main(["--samp-freq", "999999"]) == 1
+    assert capsys.readouterr().err == (
+        "ERROR: --samp-freq must be at least 1e+06 (the CLI's floor).\n")
+    assert synth.refuse_samp_freq(synth.MIN_SAMP_FREQ) is None
 
 
 def test_time_ms_on_the_host():
