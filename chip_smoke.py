@@ -39,7 +39,7 @@ of findings (any failure raises and exits non-zero):
     the walk's;
  7. kernel and plain-version times of each mode, walk and mask table, on
     one 100-epoch 2.6 Msps batch, beside each mode's bound (the
-    algorithm's operations, ALGORITHM_OPS); the two
+    algorithm's operations, tools/card.ALGORITHM_OPS); the two
     variants of each mode are timed in turns by the A/B harness
     (tools/ab_kernel.compare), which gives b_over_a;
  8. the canonical workload through run_simulation(impl="cuda-sharded") on a
@@ -99,6 +99,13 @@ of findings (any failure raises and exits non-zero):
     sha256. Prints wall, plan_s, the real-time factor, the throughput
     timeline's min/median/max and the kernel's busy share (kernel time by
     CUDA events over wall).
+ 15. the benchmark (gps_sdr_sim_tpu_torch.tools.bench) as a subprocess, as
+    a user runs it, for --impl cuda, cuda-sharded and closed, one session
+    each at the canonical size: each must exit 0 and print one JSON line
+    with checksum_verified true in every format (held exactly to
+    tests/golden/bench_checksum.txt), phase 1's card line, and launches of
+    the impl's kernel (none for closed). Prints each line and the phase's
+    wall.
 
 The line before the last is the kernel report (each synthesis row with its
 design, DESIGN); the last line is {"ok": true, "device": {...}}.
@@ -135,6 +142,12 @@ sys.meta_path.insert(0, _NoJax())
 CLI = IMPORT_HOOK + (
     "import runpy; runpy.run_module('gps_sdr_sim_tpu_torch.cli', "
     "run_name='__main__')")
+BENCH = IMPORT_HOOK + (
+    "import runpy; runpy.run_module('gps_sdr_sim_tpu_torch.tools.bench', "
+    "run_name='__main__')")
+# The kernel each bench impl must launch (None: no kernel).
+BENCH_IMPLS = {"cuda": "synth_wire", "cuda-sharded": "synth_wire_planes",
+               "closed": None}
 
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_SOURCE = "gps_sdr_sim_tpu_torch/csrc/synth.cu"
@@ -162,26 +175,6 @@ DESIGN = "channels outer, stepped phases, per-chip sign words"
 NAV_SWITCH = "GPS_SDR_SIM_NAV_GATHER"
 RATES = (1.0e6, 1310720.0, 1331200.0, 2.6e6)
 FORMATS = (16, 8, 1)
-# NVIDIA H100 SXM at its 700 W limit (published peak rates): HBM3 rate, and one 32-bit instruction per lane per clock on every
-# scheduler, i.e. the 67 TFLOP/s float32 rate counted in FMAs.
-HBM_BYTES_PER_S = 3.35e12
-ISSUE_PER_S = 67e12 / 2
-# The integer operations the synthesis algorithm needs, whatever the
-# kernel's design: per (sample, channel whose gain is not 0), advance the
-# code phase, whole-chip index, its wrap into the 1023-chip code period,
-# C/A bit, nav bit, sign = C/A xor nav, advance the carrier phase,
-# trig-table index, cos and sin lookups, two gain products and two signed
-# sums; per quantized sample (planes and the packed formats, not the raw
-# sums) the rounding and packing. The wrap counts because the function
-# reads the C/A chip at the chip count mod 1023, whatever a design does to
-# avoid a per-sample wrap; phases 7 and 13d also print the share the bound
-# would give without it (13 per pair), beside the one it gives.
-ALGORITHM_OPS = {"code phase": 1, "whole chip": 1, "code period wrap": 1,
-                 "C/A bit": 1, "nav bit": 1, "sign": 1, "carrier phase": 1,
-                 "table index": 1, "cos and sin": 2, "gain products": 2,
-                 "signed sums": 2}
-OPS_PER_SAMPLE_CHANNEL = sum(ALGORITHM_OPS.values())  # 14
-OPS_PER_QUANTIZED_SAMPLE = 4
 
 
 def say(line: str) -> None:
@@ -374,55 +367,6 @@ def phase_cli() -> None:
             f"{out.stat().st_size} bytes pass golden static16")
 
 
-class ChecksumSink:
-    """A file-like sink that checksums what the runner writes."""
-
-    def __init__(self, fmt: int):
-        self.fmt = fmt
-        self.sum = 0
-        self.nonzero = 0
-        self.bytes = 0
-
-    def write(self, data) -> int:
-        from gps_sdr_sim_tpu_torch.ops.quantize import checksum_bytes
-
-        s, nz = checksum_bytes(data, self.fmt)
-        self.sum += s
-        self.nonzero += nz
-        n = memoryview(data).nbytes
-        self.bytes += n
-        return n
-
-
-class NullSink:
-    """The reference's timing run writes to /dev/null."""
-
-    bytes = 0
-
-    def write(self, data) -> int:
-        n = memoryview(data).nbytes
-        self.bytes += n
-        return n
-
-
-def canonical_scenario(fmt: int, duration: float = 300.0):
-    from gps_sdr_sim_tpu_torch.models.scenario import (
-        ScenarioConfig,
-        build_scenario,
-    )
-
-    return build_scenario(ScenarioConfig(
-        nav_file=str(ROOT / "data" / "brdc3540.14n"),
-        motion_file=str(ROOT / "data" / "circle.csv"), duration=duration,
-        samp_freq=2.6e6, data_format=fmt))
-
-
-def golden_checksums() -> dict:
-    path = ROOT / "tests" / "golden" / "bench_checksum.txt"
-    rows = [ln.split() for ln in path.read_text().splitlines() if ln.strip()]
-    return {int(r[0]): (int(r[1]), int(r[2])) for r in rows}
-
-
 def canonical_runs(torch, scns: dict, label: str, timed_formats,
                    formats=FORMATS, on_mismatch=None,
                    **run_kw) -> tuple[dict, dict, dict]:
@@ -435,6 +379,12 @@ def canonical_runs(torch, scns: dict, label: str, timed_formats,
     from gps_sdr_sim_tpu_torch.ops import synth
     from gps_sdr_sim_tpu_torch.ops.quantize import wrap_int32
     from gps_sdr_sim_tpu_torch.runner import run_simulation
+    from gps_sdr_sim_tpu_torch.tools.bench import (
+        ChecksumSink,
+        NullSink,
+        canonical_scenario,
+        golden_checksums,
+    )
 
     goldens = golden_checksums()
     quiet = lambda s: None  # noqa: E731
@@ -484,31 +434,12 @@ def canonical_runs(torch, scns: dict, label: str, timed_formats,
     return launches, rt, stats
 
 
-def bound_ms(in_bytes: int, out_bytes: int,
-             operations: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of the bytes moved
-    (each input read once, each output written once) over the HBM rate and
-    the operations over the issue rate. Returns (ms, "bytes" or
-    "operations")."""
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = operations / ISSUE_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                 else "operations")
-
-
-def synth_operations(sample_channels: int, samples: int,
-                     quantized: bool) -> int:
-    """The algorithm's operations for `sample_channels` (sample, channel
-    with gain) pairs over `samples` output samples (ALGORITHM_OPS), the
-    same for every design of the kernel."""
-    return (OPS_PER_SAMPLE_CHANNEL * sample_channels
-            + (OPS_PER_QUANTIZED_SAMPLE * samples if quantized else 0))
-
-
 def share_without_wrap(ops: int, sample_channels: int, ms: float) -> float:
     """The share of `ms` that the operations bound would give at 13
     operations per (sample, channel), the code period wrap left out: a
     diagnostic beside the bound, which counts it."""
+    from gps_sdr_sim_tpu_torch.tools.card import ALGORITHM_OPS, ISSUE_PER_S
+
     ops -= ALGORITHM_OPS["code period wrap"] * sample_channels
     return ops / ISSUE_PER_S * 1e3 / ms
 
@@ -525,7 +456,12 @@ def phase_timing(torch, dev) -> tuple[dict, dict]:
     from gps_sdr_sim_tpu_torch.ops import synth
     from gps_sdr_sim_tpu_torch.ops.plan import plan_epochs
     from gps_sdr_sim_tpu_torch.tools import ab_kernel
-    from gps_sdr_sim_tpu_torch.tools.card import time_ms
+    from gps_sdr_sim_tpu_torch.tools.bench import canonical_scenario
+    from gps_sdr_sim_tpu_torch.tools.card import (
+        bound_ms,
+        synth_operations,
+        time_ms,
+    )
 
     scn = canonical_scenario(16)
     staged = synth.stage_epochs(
@@ -599,6 +535,7 @@ def phase_shard_files(torch, dev, duration: float = 30.0) -> None:
         run_simulation_sharded,
     )
     from gps_sdr_sim_tpu_torch.runner import run_simulation
+    from gps_sdr_sim_tpu_torch.tools.bench import canonical_scenario
 
     def digest(path) -> str:
         return hashlib.sha256(pathlib.Path(path).read_bytes()).hexdigest()
@@ -732,6 +669,7 @@ def phase_nav_canonical(torch, scns: dict, dev, meshes) -> tuple:
 def phase_vpu_peak(sass_ops: dict) -> dict:
     """Phase 10: tools/vpu_peak. Returns its kernel report fields."""
     from gps_sdr_sim_tpu_torch.tools import vpu_peak
+    from gps_sdr_sim_tpu_torch.tools.card import ISSUE_PER_S, bound_ms
 
     tiles, rounds = 2048, 512
     vpu_peak.launch_counts["vpu_peak"] = 0
@@ -1056,6 +994,7 @@ def phase_rows_canonical(torch, scn, dev, mesh) -> tuple[dict, dict]:
     from gps_sdr_sim_tpu_torch.ops.quantize import pack, wrap_int32
     from gps_sdr_sim_tpu_torch.parallel import synth_rows_sharded
     from gps_sdr_sim_tpu_torch.runner import iter_seg_batches
+    from gps_sdr_sim_tpu_torch.tools.bench import golden_checksums
 
     n = scn.iq_buff_size
     goldens = golden_checksums()
@@ -1161,7 +1100,12 @@ def phase_rows_timing(torch, dev) -> dict:
     the same batch. Returns {name: (ms, plain ms, bound, by)}."""
     from gps_sdr_sim_tpu_torch.ops import synth, synth_closed
     from gps_sdr_sim_tpu_torch.ops.plan import plan_batch
-    from gps_sdr_sim_tpu_torch.tools.card import time_ms
+    from gps_sdr_sim_tpu_torch.tools.bench import canonical_scenario
+    from gps_sdr_sim_tpu_torch.tools.card import (
+        bound_ms,
+        synth_operations,
+        time_ms,
+    )
 
     scn = canonical_scenario(16)
     n = scn.iq_buff_size
@@ -1300,6 +1244,43 @@ def phase_day(torch, dev) -> dict:
             "realtime_factor": st["realtime_factor"]}
 
 
+def phase_bench(card: str) -> None:
+    """Phase 15: tools/bench as a subprocess through IMPORT_HOOK, one
+    session of each of BENCH_IMPLS at the canonical size."""
+    t0 = time.perf_counter()
+    for impl, kernel in BENCH_IMPLS.items():
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", BENCH, "--impl", impl],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench --impl {impl} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        lines = proc.stdout.splitlines()
+        if len(lines) != 1:
+            raise AssertionError(f"bench --impl {impl} printed "
+                                 f"{len(lines)} lines on stdout")
+        line = json.loads(lines[0])
+        unverified = [f for f, v in line["formats"].items()
+                      if v["checksum_verified"] is not True]
+        if line["checksum_verified"] is not True or unverified:
+            raise AssertionError(f"bench --impl {impl}: checksum_verified "
+                                 f"{line['checksum_verified']}, not true in "
+                                 f"{unverified}")
+        if line["card"] != card:
+            raise AssertionError(f"bench --impl {impl}: card "
+                                 f"{line['card']!r} != {card!r}")
+        launched = {k: v for k, v in line["launches"].items() if v}
+        if set(launched) != ({kernel} if kernel else set()):
+            raise AssertionError(f"bench --impl {impl} launched {launched}")
+        say(f"phase 15 bench --impl {impl} ({time.perf_counter() - t:.2f} "
+            f"s): {lines[0]}")
+    say(f"phase 15 bench: " + ", ".join(BENCH_IMPLS) + " exit 0, "
+        f"checksum_verified true in SC16, SC08 and SC01 against "
+        f"tests/golden/bench_checksum.txt, card = phase 1's; "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     if not (ROOT / KERNEL_SOURCE).is_file():
         print(f"FAIL: {KERNEL_SOURCE} not found beside chip_smoke.py; run "
@@ -1315,6 +1296,8 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(torch, dev)
     phase_goldens(dev)
     phase_cli()
+    from gps_sdr_sim_tpu_torch.tools.bench import canonical_scenario
+
     scns = {fmt: canonical_scenario(fmt) for fmt in FORMATS}
     launches, rt, wire_stats = canonical_runs(
         torch, scns, "phase 6 canonical", FORMATS, impl="cuda", device=dev)
@@ -1341,6 +1324,7 @@ def main() -> int:
     row_times = phase_rows_timing(torch, dev)
     phase_scaling(dev)
     day = phase_day(torch, dev)
+    phase_bench(card)
 
     # Each kernel's launches on the path that runs it.
     paths = {"synth_wire": launches["synth_wire"] + rx["synth_wire"]

@@ -147,6 +147,43 @@ def fetch_async(out: torch.Tensor):
     return host, done
 
 
+def writes_words(impl: str) -> bool:
+    """Whether synth_batch_outputs gives `impl`'s batch as the kernel's
+    [B, W] int32 packed words (cuda, torch), rather than pieces of packed
+    [B, n_out, 2] samples."""
+    return impl in ("cuda", "torch")
+
+
+def synth_batch_outputs(scn: Scenario, seg, e: int, e1: int,
+                        batch_epochs: int, impl: str, device, mesh=None,
+                        nav_gather: bool = False) -> list:
+    """Plan epochs [e, e1) of segment `seg`, padded to `batch_epochs`, and
+    enqueue their synthesis in `scn`'s format on the device, without
+    waiting. Returns the device outputs: one [B, W] int32 word tensor for
+    cuda / torch (writes_words), else the packed samples of each piece:
+    one for closed, one per time shard of `mesh` for the sharded impls."""
+    n = scn.iq_buff_size
+    fmt = scn.config.data_format
+    plain = impl.startswith("torch")
+    sharded = impl.endswith("-sharded")
+    if sharded:
+        from gps_sdr_sim_tpu_torch.parallel.shard import (
+            synth_batch_sharded,
+            synth_epochs_sharded,
+        )
+    if impl.startswith("closed"):
+        db = _pad_batch(plan_batch(seg, e, e1, n, scn.delt), batch_epochs)
+        iq = (synth_batch_sharded(db, n, mesh) if sharded
+              else [synth_closed.synth_batch(db, n, device)])
+        return [pack(p, fmt) for p in iq]
+    eb = pad_epochs(plan_epochs(seg, e, e1, scn.delt), batch_epochs)
+    if sharded:
+        return [pack(p, fmt) for p in synth_epochs_sharded(
+            eb, n, mesh, plain, nav_gather)]
+    return [synth.synth_staged_packed(synth.stage_epochs(eb, device), n, fmt,
+                                      plain, nav_gather)]
+
+
 def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
                     batch_epochs: int = 20,
                     log: Optional[Callable[[str], None]] = None,
@@ -166,15 +203,9 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
     if log is None:
         log = lambda s: print(s, end="", file=sys.stderr, flush=True)
     device = resolve_device(impl, device)
-    sharded = impl.endswith("-sharded")
-    plain = impl.startswith("torch")
-    closed = impl.startswith("closed")
-    if sharded:
+    words = writes_words(impl)
+    if impl.endswith("-sharded"):
         from gps_sdr_sim_tpu_torch.parallel.mesh import auto_mesh
-        from gps_sdr_sim_tpu_torch.parallel.shard import (
-            synth_batch_sharded,
-            synth_epochs_sharded,
-        )
 
         if mesh is None:
             mesh = auto_mesh(device=device)
@@ -203,7 +234,7 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
             if len(rows) == 0:
                 break
             valid -= len(rows)
-            if not (sharded or closed):  # the kernel's output words
+            if words:
                 rows = words_to_bytes(rows, n, fmt)
             fp.write(np.ascontiguousarray(rows).reshape(-1).view(np.uint8)
                      .data)
@@ -212,21 +243,8 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
 
     for seg, e, e1 in iter_seg_batches(scn, lo, hi, batch_epochs):
         t_plan = time.time()
-        if closed:
-            db = _pad_batch(plan_batch(seg, e, e1, n, scn.delt),
-                            batch_epochs)
-            iq = (synth_batch_sharded(db, n, mesh) if sharded
-                  else [synth_closed.synth_batch(db, n, device)])
-            outs = [pack(p, fmt) for p in iq]
-        else:
-            eb = pad_epochs(plan_epochs(seg, e, e1, scn.delt), batch_epochs)
-            if sharded:
-                outs = [pack(p, fmt) for p in synth_epochs_sharded(
-                    eb, n, mesh, plain, nav_gather)]
-            else:
-                outs = [synth.synth_staged_packed(
-                    synth.stage_epochs(eb, device), n, fmt, plain,
-                    nav_gather)]
+        outs = synth_batch_outputs(scn, seg, e, e1, batch_epochs, impl,
+                                   device, mesh, nav_gather)
         pieces = [fetch_async(o) if o.device.type == "cuda" else (o, None)
                   for o in outs]
         stats.plan_seconds += time.time() - t_plan

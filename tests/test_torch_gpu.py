@@ -302,3 +302,29 @@ def test_dayrun_spot_check_on_the_card():
     assert synth.launch_counts["synth_wire"] == before + 2  # + the warm-up
     assert run.stats["block_sha256"] == {
         "36000": want["block_sha256"]["36000"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["cuda", "cuda-sharded", "closed"])
+def test_bench_passes_on_the_card_match_the_cpu(impl):
+    """tools/bench's synthesis and end-to-end passes over 1 s of the
+    canonical scenario on cuda:0 give the (sum, nonzero) of its synthesis
+    pass with the plain torch impl on the CPU, and the same least batch
+    nonzero count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gps_sdr_sim_tpu_torch.ops.quantize import wrap_int32
+    from gps_sdr_sim_tpu_torch.tools import bench
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(1, 1, [dev]) if impl.endswith("-sharded") else None
+    for fmt in (16, 8, 1):
+        scn = bench.canonical_scenario(fmt, 1.0)
+        want = bench.synthesis_pass(scn, 4, "torch", "cpu")
+        got = bench.synthesis_pass(scn, 4, impl, dev, mesh)
+        assert (got.checksum, got.nonzero, got.min_batch_nonzero) == (
+            want.checksum, want.nonzero, want.min_batch_nonzero), fmt
+        sink = bench.ChecksumSink(fmt)
+        bench.end_to_end_pass(scn, sink, 4, impl, dev, mesh)
+        assert (wrap_int32(sink.sum), sink.nonzero) == (
+            want.checksum, want.nonzero), fmt
