@@ -12,8 +12,9 @@ shows that the port stands alone. Phases, each printing one line
 of findings (any failure raises and exits non-zero):
 
  1. environment: card name and power limit, CUDA, nvcc, triton;
- 2. build csrc/synth.cu and csrc/vpu_peak.cu with nvcc for sm_90a, the two
-    nvcc processes side by side (timed as set-up); print each synthesis
+ 2. build csrc/synth.cu, csrc/vpu_peak.cu and csrc/synth_profile.cu with
+    nvcc for sm_90a, the three nvcc processes side by side (timed as
+    set-up); print each synthesis
     instantiation's registers, shared memory and spills (-Xptxas -v) and
     its SASS instructions per (sample, channel) (its channel loop's length
     over the samples one trip covers, a diagnostic: the bounds count the
@@ -106,6 +107,17 @@ of findings (any failure raises and exits non-zero):
     tests/golden/bench_checksum.txt), phase 1's card line, and launches of
     the impl's kernel (none for closed). Prints each line and the phase's
     wall.
+ 16. kernel cost attribution: each ablated instantiation of the packed
+    kernel (csrc/synth_profile.cu: no_trig_gather, no_ca_gather,
+    no_nav_walk, no_gathers in SC16/SC08/SC01) with its SASS per (sample,
+    channel), registers and spills, and each held to its plain version
+    (ops.synth.schedule_words) on the canonical 100-epoch batch, word for
+    word; then tools/profile_kernel (400 epochs) and tools/op_budget
+    --profile, each as a subprocess through the import hook, whose summary
+    lines it prints; then a 2 s SC08 capture from the CLI's -o - piped
+    through tools/uhd_player --sink, whose fc32 stream must equal a NumPy
+    decode of the capture. The ablated kernels are not kernels of the JAX
+    package's table, so the kernel report does not list them.
 
 The line before the last is the kernel report (each synthesis row with its
 design, DESIGN); the last line is {"ok": true, "device": {...}}.
@@ -139,12 +151,16 @@ class _NoJax(importlib.abc.MetaPathFinder):
             raise ImportError(f"the port imported {name}")
 sys.meta_path.insert(0, _NoJax())
 """
-CLI = IMPORT_HOOK + (
-    "import runpy; runpy.run_module('gps_sdr_sim_tpu_torch.cli', "
-    "run_name='__main__')")
-BENCH = IMPORT_HOOK + (
-    "import runpy; runpy.run_module('gps_sdr_sim_tpu_torch.tools.bench', "
-    "run_name='__main__')")
+
+def tool(module: str) -> str:
+    """The -c program that runs `module` as __main__ under IMPORT_HOOK."""
+    return IMPORT_HOOK + (f"import runpy; runpy.run_module("
+                          f"'gps_sdr_sim_tpu_torch.{module}', "
+                          f"run_name='__main__')")
+
+
+CLI = tool("cli")
+BENCH = tool("tools.bench")
 # The kernel each bench impl must launch (None: no kernel).
 BENCH_IMPLS = {"cuda": "synth_wire", "cuda-sharded": "synth_wire_planes",
                "closed": None}
@@ -208,7 +224,8 @@ def phase_env(torch) -> str:
 
 
 def phase_build() -> dict:
-    """Builds both sources side by side; prints each synthesis
+    """Builds the three sources side by side (the profile library is
+    phase 16's); prints each synthesis
     instantiation's -Xptxas -v usage and SASS instructions per (sample,
     channel); returns each vpu_peak case's SASS instructions per round,
     under vpu_peak/ keys."""
@@ -216,9 +233,10 @@ def phase_build() -> dict:
     from gps_sdr_sim_tpu_torch.tools import vpu_peak
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(synth_cuda.build, (synth_cuda.SOURCE,
-                                                synth_cuda.VPU_PEAK_SOURCE)))
+    sources = (synth_cuda.SOURCE, synth_cuda.VPU_PEAK_SOURCE,
+               synth_cuda.PROFILE_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(synth_cuda.build, sources))
     synth_cuda.load()
     built = time.perf_counter() - t
     per_sample = synth_cuda.channel_loop_instructions(synth_cuda.sass_loops(
@@ -230,8 +248,8 @@ def phase_build() -> dict:
         raise AssertionError(f"-Xptxas -v reports kernels {sorted(usage)}")
     rounds = vpu_peak.round_instructions(synth_cuda.sass_loops(
         synth_cuda.sass(libs[1])))
-    say(f"phase 2 build: {libs[0].name} and {libs[1].name} in {built:.2f} s "
-        f"(two nvcc side by side)")
+    say(f"phase 2 build: {', '.join(lib.name for lib in libs)} in "
+        f"{built:.2f} s ({len(libs)} nvcc side by side)")
     for key, n in per_sample.items():
         u = usage[key]
         say(f"phase 2 {key}: {n:.2f} SASS instructions per (sample, channel) "
@@ -1281,6 +1299,143 @@ def phase_bench(card: str) -> None:
         f"{time.perf_counter() - t0:.2f} s")
 
 
+def player_pipe(tmp: pathlib.Path, cli_args: list,
+                pairs: int) -> tuple[int, int]:
+    """The CLI's SC08 -o - (static Tokyo, `cli_args`) through tee into a
+    file and into tools/uhd_player --sink; raises unless the capture holds
+    `pairs` I/Q pairs, not all 0, and the sink is their NumPy decode (x16
+    / 2048). Returns (capture bytes, sink samples)."""
+    import numpy as np
+
+    from gps_sdr_sim_tpu_torch.testing import NAV
+
+    cap, sink = tmp / "player.bin", tmp / "player.fc32"
+    cli = subprocess.Popen(
+        [sys.executable, "-c", CLI, "-e", str(NAV), "-l",
+         "35.681298,139.766247,10.0", *cli_args, "-b", "8", "-o", "-"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+    tee = subprocess.Popen(["tee", str(cap)], stdin=cli.stdout,
+                           stdout=subprocess.PIPE)
+    cli.stdout.close()
+    player = subprocess.run(
+        [sys.executable, "-c", tool("tools.uhd_player"), "-t", "/dev/stdin",
+         "-b", "8", "--no-repeat", "--sink", str(sink)],
+        cwd=ROOT, stdin=tee.stdout, capture_output=True, text=True,
+        timeout=600)
+    tee.stdout.close()
+    rcs = (cli.wait(timeout=600), tee.wait(timeout=60), player.returncode)
+    if rcs != (0, 0, 0):
+        raise AssertionError(f"CLI | tee | uhd_player exited {rcs}:\n"
+                             f"{player.stderr[-4000:]}")
+    raw = np.fromfile(cap, np.int8)
+    iq = raw.astype(np.float32).reshape(-1, 2) * 16.0
+    want = ((iq[:, 0] + 1j * iq[:, 1]) / 2048.0).astype(np.complex64)
+    got = np.fromfile(sink, np.complex64)
+    if iq.shape[0] != pairs or not raw.any():
+        raise AssertionError(f"the CLI wrote {iq.shape[0]} I/Q pairs "
+                             f"({np.count_nonzero(raw)} bytes not 0), "
+                             f"not {pairs}")
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (np.flatnonzero(got != want)[:5] if got.shape == want.shape
+               else [])
+        raise AssertionError(f"uhd_player --sink: {got.size} samples for "
+                             f"{want.size}; first differing at {bad}: "
+                             f"{got[bad]} != {want[bad]}")
+    return raw.size, got.size
+
+
+def phase_attribution(torch, dev, card: str) -> None:
+    """Phase 16: the ablated instantiations against their plain versions,
+    tools/profile_kernel and tools/op_budget as subprocesses, and the
+    CLI's -o - through tools/uhd_player --sink."""
+    from gps_sdr_sim_tpu_torch.ops import synth, synth_cuda
+    from gps_sdr_sim_tpu_torch.ops.plan import plan_epochs
+    from gps_sdr_sim_tpu_torch.tools import op_budget, profile_kernel
+    from gps_sdr_sim_tpu_torch.tools.bench import canonical_scenario
+
+    t0 = time.perf_counter()
+    lib = synth_cuda.build(synth_cuda.PROFILE_SOURCE)
+    found = op_budget.budget(synth_cuda.sass(lib), synth_cuda.build_log(lib),
+                             "synth_profile")
+    for key, b in found.items():
+        u = b["ptxas"]
+        say(f"phase 16 {key}: {b['sass_per_chan_sample']:.3f} SASS "
+            f"instructions per (sample, channel) ({b['body_per_sample']} per "
+            f"sample + {b['setup_per_trip']} setup per trip); -Xptxas -v: "
+            f"{u['registers']} registers, spill stores {u['spill_stores']} "
+            f"/ loads {u['spill_loads']} bytes")
+
+    scn = canonical_scenario(16)
+    staged = synth.stage_epochs(
+        plan_epochs(scn.segments[0], 0, 100, scn.delt), dev)
+    n = scn.iq_buff_size
+    args = (staged.wire, staged.ca_words, staged.n_chan, n)
+    profile_kernel.launch_counts["synth_wire_ablated"] = 0
+    worst, differ = 0, 0
+    for fmt in FORMATS:
+        production = synth.synth_wire(*args, fmt)
+        for name, ablate in synth_cuda.ABLATION_SETS.items():
+            got = profile_kernel.synth_wire_ablated(*args, fmt, ablate)
+            want = synth.schedule_words(*args, fmt, ablate)
+            worst = max(worst, max_diff(torch, (got,), (want,)))
+            if not torch.equal(got, want):
+                raise AssertionError(f"synth_wire/{fmt}/{name} != its plain "
+                                     f"version on the 100-epoch batch")
+            differ += not torch.equal(got, production)
+            del got, want
+    launches = profile_kernel.launch_counts["synth_wire_ablated"]
+    if launches != len(FORMATS) * len(synth_cuda.ABLATION_SETS):
+        raise AssertionError(f"{launches} ablated launches")
+    say(f"phase 16 ablated kernels: all {launches} (SC16/SC08/SC01 x "
+        f"{', '.join(synth_cuda.ABLATION_SETS)}) = their plain versions "
+        f"(schedule_words) on the canonical 100-epoch batch, max |diff| "
+        f"{worst}; {differ} of them differ from the production words")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        lines = {}
+        for module, extra in (
+                ("profile_kernel", ["--json", str(tmp / "profile.json")]),
+                ("op_budget", ["--profile", str(tmp / "profile.json"),
+                               "--json", str(tmp / "budget.json")])):
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", tool(f"tools.{module}"), *extra],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            out = proc.stdout.splitlines()
+            if proc.returncode != 0 or len(out) != 1:
+                raise AssertionError(f"{module} exited {proc.returncode} "
+                                     f"with {len(out)} lines:\n"
+                                     f"{proc.stderr[-4000:]}")
+            lines[module] = json.loads(out[0])
+            say(f"phase 16 {module} ({time.perf_counter() - t:.2f} s): "
+                f"{out[0]}")
+        prof, budget = lines["profile_kernel"], lines["op_budget"]
+        if prof["card"] != card or budget["card"] != card:
+            raise AssertionError(f"card {prof['card']!r} / "
+                                 f"{budget['card']!r} != {card!r}")
+        for key in ("overhead_separation", "breakdown", "epilogue"):
+            if not prof.get(key):
+                raise AssertionError(f"profile_kernel printed no {key}")
+        full = json.loads((tmp / "budget.json").read_text())
+        b = full["instantiations"]["synth_wire/16"]
+        say(f"phase 16 op_budget synth_wire/16 per (sample, channel): "
+            + ", ".join(f"{c} {v:.3f}" for c, v in
+                        b["classes_per_chan_sample"].items() if v)
+            + f"; body {json.dumps(b['classes_body_per_sample'])}, setup "
+            f"per trip {json.dumps(b['classes_setup_per_trip'])}; "
+            f"reconcile {json.dumps(full['reconcile'])}")
+
+        t = time.perf_counter()
+        # 19 epochs of 0.1 s: the CLI writes -d 2 as the reference does.
+        size, pairs = player_pipe(tmp, ["-d", "2", "-s", "2600000"],
+                                  19 * 260000)
+        say(f"phase 16 CLI -o - | uhd_player --sink: a 2 s SC08 capture "
+            f"({size} bytes, {time.perf_counter() - t:.2f} s) gives {pairs} "
+            f"fc32 samples = the NumPy decode (x16 / 2048)")
+    say(f"phase 16 attribution: {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     if not (ROOT / KERNEL_SOURCE).is_file():
         print(f"FAIL: {KERNEL_SOURCE} not found beside chip_smoke.py; run "
@@ -1325,6 +1480,7 @@ def main() -> int:
     phase_scaling(dev)
     day = phase_day(torch, dev)
     phase_bench(card)
+    phase_attribution(torch, dev, card)
 
     # Each kernel's launches on the path that runs it.
     paths = {"synth_wire": launches["synth_wire"] + rx["synth_wire"]

@@ -101,6 +101,17 @@
 // trip), about 15 per sample and the rest the channel's per-thread setup,
 // at 72 registers and no spills. One block per (sub-block, epoch),
 // kThreads threads.
+//
+// Cost attribution (the ABLATE template value; the Pallas kernel's `ablate`
+// argument, synth_pallas.py:84-97,371-435): each bit replaces one cost
+// centre of the packed walk kernel with a stand-in of the same shape that
+// keeps the work around it alive, so timing an ablated instantiation
+// against the production one attributes the centre's time. Ablated
+// kernels write wrong samples by design. Every instantiation in this file
+// has ABLATE = 0; csrc/synth_profile.cu instantiates the others into a
+// library of their own (built for tools/profile_kernel.py and
+// tools/op_budget.py only), so this file's library and its SASS are those
+// of the production loop.
 // Domain: a channel's 2048 samples must span at most kSignWords * 32 chips,
 // i.e. code steps below 2 chips per sample (the CLI's 1 Msps floor gives
 // ~1.02); ops/synth.py refuses other wires on the host before they are
@@ -141,6 +152,16 @@ struct Chan {
   int32_t src;          // the channel's row of ca_words
 };
 
+// The ABLATE bits (ops/synth_cuda.py ABLATE_BITS):
+//   kNoTrigGather: no trig[idx2] shared load; the stand-in cs = (idx2,
+//     idx2) keeps the table index alive;
+//   kNoCaGather: no sign-word load and no funnel shift; the stand-in sign
+//     is bit 0 of the chip count;
+//   kNoNavWalk: the prologue's sign words carry every nav bit as 0, so the
+//     sign is the C/A bit alone. The nav rule runs in the prologue only,
+//     so this removes the prologue's nav share, not a per-sample cost.
+enum Ablate { kNoTrigGather = 1, kNoCaGather = 2, kNoNavWalk = 4 };
+
 // floor(a / b) for b > 0; C++ division truncates toward zero.
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
@@ -175,7 +196,7 @@ __device__ __forceinline__ uint32_t nav_bit(int M, int m0r, int m0, int b0,
 // Fill the fields that follow from the sub-block's phases: where its first
 // chip lies, how many sign words it reads, the nav bit of each code period
 // it can reach, and one stride of each phase.
-template <bool NAV>
+template <bool NAV, int ABLATE>
 __device__ __forceinline__ void finish_chan(Chan& p, int t_base, int m0r,
                                             int m0, int b0, int navbits) {
   const int m_first = floor_div(t_base, kCaLen);
@@ -185,8 +206,10 @@ __device__ __forceinline__ void finish_chan(Chan& p, int t_base, int m0r,
   if (span >= uint64_t(kSignWords) * 32) __trap();  // outside the domain
   p.n_words = int(span >> 5) + 1;
   p.navp = 0;
-  for (int q = 0; q < kPeriods; ++q) {
-    p.navp |= nav_bit<NAV>(m_first + q, m0r, m0, b0, navbits) << q;
+  if constexpr ((ABLATE & kNoNavWalk) == 0) {
+    for (int q = 0; q < kPeriods; ++q) {
+      p.navp |= nav_bit<NAV>(m_first + q, m0r, m0, b0, navbits) << q;
+    }
   }
   const uint64_t d = uint64_t(kThreads) * p.code_step;
   p.code_dfrac = d << 24;
@@ -229,7 +252,7 @@ enum Mode { kPacked = 0, kPlanes = 1, kRaw = 2 };
 // Channel c of the block (c < n_chan; one thread each): its parameters
 // rebased to sub-block sb (wire) or read from its row, into *p. Returns
 // whether its gain is not 0.
-template <bool NAV, bool ROWS>
+template <bool NAV, bool ROWS, int ABLATE>
 __device__ __forceinline__ bool load_chan(const int32_t* __restrict__ params,
                                           int param_chans, int sb, int b,
                                           int sub_blocks, int c, Chan* p) {
@@ -242,7 +265,7 @@ __device__ __forceinline__ bool load_chan(const int32_t* __restrict__ params,
     p->code_step = lanes_u64(w, 2);
     p->carr_base = lanes_u64(w, 4);
     p->carr_step = lanes_u64(w, 6);
-    finish_chan<false>(*p, w[8], w[9], 0, 0, w[10]);
+    finish_chan<false, ABLATE>(*p, w[8], w[9], 0, 0, w[10]);
   } else {
     const int32_t* w = params + (size_t(b) * param_chans + c) * kWireLanes;
     p->gain = w[11];
@@ -265,8 +288,8 @@ __device__ __forceinline__ bool load_chan(const int32_t* __restrict__ params,
       p->carr_step = s >> 16;
     }
     const int32_t m0 = w[9] & 0xFFFF, b0 = w[9] >> 16;
-    finish_chan<NAV>(*p, int32_t(uint32_t(w[8]) + carry), m0 - 20 * b0, m0,
-                     b0, w[10]);
+    finish_chan<NAV, ABLATE>(*p, int32_t(uint32_t(w[8]) + carry),
+                             m0 - 20 * b0, m0, b0, w[10]);
   }
   p->src = c;
   return true;
@@ -277,8 +300,8 @@ __device__ __forceinline__ bool load_chan(const int32_t* __restrict__ params,
 // [B, param_chans, 12] wire, of which the first n_chan channels are summed.
 // Channels whose gain is 0 add exactly 0 and are skipped. out: the packed
 // words (kPacked) or the I plane; out_q: the Q plane (kPlanes, kRaw; unused
-// for kPacked).
-template <int MODE, int FMT, bool NAV, bool ROWS>
+// for kPacked). ABLATE: 0, or the cost centres replaced (Ablate).
+template <int MODE, int FMT, bool NAV, bool ROWS, int ABLATE = 0>
 __device__ __forceinline__ void synth_block(
     const int32_t* __restrict__ params, const int32_t* __restrict__ ca_words,
     const int32_t* __restrict__ table, int32_t* __restrict__ out,
@@ -304,7 +327,8 @@ __device__ __forceinline__ void synth_block(
   if (t < 32) {
     Chan p;
     const bool live = int(t) < n_chan &&
-        load_chan<NAV, ROWS>(params, param_chans, sb, b, sub_blocks, t, &p);
+        load_chan<NAV, ROWS, ABLATE>(params, param_chans, sb, b, sub_blocks,
+                                     t, &p);
     const uint32_t kept = __ballot_sync(0xFFFFFFFFu, live);
     if (live) ch[__popc(kept & ((1u << t) - 1u))] = p;
     if (t == 0) n_live = __popc(kept);
@@ -348,11 +372,21 @@ __device__ __forceinline__ void synth_block(
             : "r"(d_lo), "r"(d_hi), "r"(d_whole));
         carr += carr_d;
       }
-      const uint32_t w = sg[chips >> 5];
-      const uint32_t sign = __funnelshift_r(w, w, chips);  // bit 0
+      uint32_t sign;  // bit 0
+      if constexpr ((ABLATE & kNoCaGather) != 0) {
+        sign = chips;  // stand-in
+      } else {
+        const uint32_t w = sg[chips >> 5];
+        sign = __funnelshift_r(w, w, chips);
+      }
       const uint32_t idx2 = ((uint32_t(carr >> 32) >> 22) & ~1u) |
                             (sign & 1u);
-      const int2 cs = trig[idx2];
+      int2 cs;
+      if constexpr ((ABLATE & kNoTrigGather) != 0) {
+        cs = make_int2(int(idx2), int(idx2));  // stand-in
+      } else {
+        cs = trig[idx2];
+      }
       iacc[k] += gain * uint32_t(cs.x);
       qacc[k] += gain * uint32_t(cs.y);
     }
@@ -452,6 +486,10 @@ bool bad_shape(int n_epochs, int wire_chans, int n_chan, int sub_blocks) {
 
 }  // namespace
 
+// csrc/synth_profile.cu includes this file for its kernels and defines
+// entry points of its own.
+#ifndef SYNTH_NO_ENTRY_POINTS
+
 // Launch on `stream` and return cudaGetLastError() (0 on success).
 // wire [n_epochs, wire_chans, 12] int32, ca_words [wire_chans, 32] int32,
 // table [2, 512] int32 (sin row, cos row),
@@ -533,3 +571,5 @@ extern "C" int synth_rows_launch(const int32_t* rows, const int32_t* ca_words,
   }
   return int(cudaGetLastError());
 }
+
+#endif  // SYNTH_NO_ENTRY_POINTS

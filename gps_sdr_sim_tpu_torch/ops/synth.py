@@ -33,7 +33,9 @@ The kernel takes code steps below 2 chips per sample (MAX_CODE_STEP; the
 CLI's 1 Msps floor gives ~1.02): a wire or rows bound for a card are
 checked on the host as they go up (upload_wire, upload_rows), and the
 plain versions on the CPU take any step. `schedule_sums` is the kernel's
-schedule in plain torch, for the tests.
+schedule in plain torch, for the tests; with `ablate` it is also the plain
+version of the ablated instantiations that the cost-attribution tools time
+(csrc/synth_profile.cu; `schedule_words` packs its sums into words).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 
 from gps_sdr_sim_tpu_torch.constants import CA_SEQ_LEN, MAX_CHAN, SUBBLOCK
 from gps_sdr_sim_tpu_torch.ops.plan import WIRE_LANES, pack_epoch_wire
+from gps_sdr_sim_tpu_torch.ops.synth_cuda import ABLATE_BITS
 from gps_sdr_sim_tpu_torch.ops.tables import COS_TABLE512, SIN_TABLE512
 
 # Samples per int32 output word: SC16 one I/Q pair, SC08 two, SC01 sixteen.
@@ -399,18 +402,20 @@ def _accumulate_iq(wire, ca_words, n_chan: int, sub_blocks: int,
 # ---------------------------------------------------------------------------
 
 
-def sign_words(f: dict, ca_words, n_chan: int, masks=None):
+def sign_words(f: dict, ca_words, n_chan: int, masks=None,
+               no_nav: bool = False):
     """The sign words of csrc/synth.cu's block prologue (nav_bit,
-    finish_chan and sign_word, csrc/synth.cu:163-218; built at :314-320)
-    for the first n_chan channels of the fields `f` of
+    finish_chan and sign_word; built in synth_block before its channel
+    loop) for the first n_chan channels of the fields `f` of
     _channel_sums: ([B, SB, n_chan, SIGN_WORDS] int64 words holding uint32
     values, [B, SB, n_chan] words read). Bit j of word k is C/A bit xor
     nav bit of the chip chip_first + 32 k + j chips after the start of the
     sub-block's first code period Mfirst: one bit per chip of the sub-block,
     across its code periods. The nav bit of each of the PERIODS periods
     from Mfirst follows the walk, or with `masks` ([B, C, 128]) lane
-    M & 127. Words past those read are 0. Raises ValueError where a
-    sub-block spans more chips than SIGN_WORDS * 32 (the kernel traps)."""
+    M & 127, or with no_nav (the no_nav_walk ablation) is 0. Words past
+    those read are 0. Raises ValueError where a sub-block spans more chips
+    than SIGN_WORDS * 32 (the kernel traps)."""
     B, SB = f["code_base"].shape[:2]
     dev = ca_words.device
 
@@ -426,7 +431,9 @@ def sign_words(f: dict, ca_words, n_chan: int, masks=None):
                          f"more than the kernel's {SIGN_WORDS * 32}")
     n_words = (span >> 5) + 1
     M = m_first[..., None] + torch.arange(PERIODS, device=dev)
-    if masks is None:
+    if no_nav:
+        nav = torch.zeros_like(M)
+    elif masks is None:
         nav = shr_signfill(col("navbits")[..., None],
                            floor_div(col("m0r")[..., None] + M, 20)) & 1
     else:
@@ -451,10 +458,10 @@ def sign_words(f: dict, ca_words, n_chan: int, masks=None):
 
 
 def schedule_sums(wire, ca_words, n_chan: int, sub_blocks: int,
-                  nav_gather: bool = False):
+                  nav_gather: bool = False, ablate=frozenset()):
     """Channel sums (I, Q) of a wire, int64 [B, SB, SUBBLOCK] before the
-    int32 wrap, in csrc/synth.cu's schedule (synth_block, its table at
-    :287-301 and its channel loop at :327-359): thread t of
+    int32 wrap, in csrc/synth.cu's schedule (synth_block: its table of
+    +-(cos, sin) and its channel loop): thread t of
     THREADS owns samples t + THREADS * k, k < SAMPLES_PER_THREAD; per
     channel it computes its first phases once and then steps them by
     THREADS * step exactly (the kernel's add.cc / addc chain on the
@@ -462,10 +469,24 @@ def schedule_sums(wire, ca_words, n_chan: int, sub_blocks: int,
     the carry of a 40-bit fraction does here); the sign comes from the
     sign words (sign_words) at the chip count since the sub-block's first
     sample, and selects entry 2 * idx + sign of a table of +-(cos, sin).
-    Used by the tests only, to hold the schedule to _channel_sums."""
+    Used by the tests, to hold the schedule to _channel_sums.
+
+    ablate: a set of ABLATE_BITS' names (the cost centres of csrc/synth.cu's
+    Ablate bits), the stand-ins of an ablated instantiation
+    (csrc/synth_profile.cu; its plain version): no_trig_gather adds
+    gain * idx2 to both sums in place of the table pair, no_ca_gather takes
+    the sign from bit 0 of the chip count in place of the sign word,
+    no_nav_walk builds the sign words with every nav bit 0. Such sums are
+    wrong by design."""
+    ablate = frozenset(ablate)
+    unknown = ablate - ABLATE_BITS.keys()
+    if unknown:
+        raise ValueError(f"unknown ablation {sorted(unknown)}; the centres "
+                         f"are {sorted(ABLATE_BITS)}")
     f = _wire_fields(wire, sub_blocks)
     dev = ca_words.device
-    words, _ = sign_words(f, ca_words, n_chan, _wire_masks(wire, nav_gather))
+    words, _ = sign_words(f, ca_words, n_chan, _wire_masks(wire, nav_gather),
+                          no_nav="no_nav_walk" in ablate)
     B, SB = f["code_base"].shape[:2]
     tbl = trig_table(dev).to(torch.int64)
     pairs = torch.stack([tbl[1], tbl[0]], dim=-1)    # (cos, sin)
@@ -490,9 +511,16 @@ def schedule_sums(wire, ca_words, n_chan: int, sub_blocks: int,
                 chips = chips + (d >> 40) + (frac >> 40)
                 frac = frac & _MASK40
                 carr = (carr + carr_d) & _MASK40
-            w = torch.gather(wc, 2, (chips >> 5).expand(B, SB, THREADS))
-            sign = (w >> (chips & 31)) & 1
-            cs = trig[((carr >> 30) & ~1) | sign]     # [B, SB, T, 2]
+            if "no_ca_gather" in ablate:
+                sign = chips & 1
+            else:
+                w = torch.gather(wc, 2, (chips >> 5).expand(B, SB, THREADS))
+                sign = (w >> (chips & 31)) & 1
+            idx2 = ((carr >> 30) & ~1) | sign
+            if "no_trig_gather" in ablate:
+                cs = idx2[..., None].expand(*idx2.shape, 2)
+            else:
+                cs = trig[idx2]                      # [B, SB, T, 2]
             iacc[:, :, k] += col("gain") * cs[..., 0]
             qacc[:, :, k] += col("gain") * cs[..., 1]
     return (iacc.reshape(B, SB, SUBBLOCK), qacc.reshape(B, SB, SUBBLOCK))
@@ -518,13 +546,11 @@ def _quantized_iq(wire, ca_words, n_chan: int, sub_blocks: int,
     return _quantize_acc(iacc), _quantize_acc(qacc)
 
 
-def synth_wire_ref(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
-                   n_out: int, fmt: int,
-                   nav_gather: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: same words, any device."""
-    B = wire.shape[0]
-    sub_blocks = -(-n_out // SUBBLOCK)
-    i16, q16 = _quantized_iq(wire, ca_words, n_chan, sub_blocks, nav_gather)
+def _pack_words(i16: torch.Tensor, q16: torch.Tensor,
+                fmt: int) -> torch.Tensor:
+    """(I, Q) after (acc + 64) >> 7, int64 [B, SB, SUBBLOCK] before the
+    int16 wrap -> [B, SB * SUBBLOCK / div] int32 words of format fmt."""
+    B = i16.shape[0]
     i16 = i16.reshape(B, -1)
     q16 = q16.reshape(B, -1)
     if fmt == 16:
@@ -535,7 +561,7 @@ def synth_wire_ref(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
         pair = (ib | (qb << 8)).reshape(B, -1, 2)
         words = pair[..., 0] | (pair[..., 1] << 16)
     elif fmt == 1:
-        k = torch.arange(16, device=wire.device, dtype=torch.int64)
+        k = torch.arange(16, device=i16.device, dtype=torch.int64)
         bit = 8 * (k >> 2) + 7 - 2 * (k & 3)
         ib = (_wrap16(i16) > 0).to(torch.int64).reshape(B, -1, 16)
         qb = (_wrap16(q16) > 0).to(torch.int64).reshape(B, -1, 16)
@@ -543,6 +569,26 @@ def synth_wire_ref(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
     else:
         raise ValueError(f"Invalid I/Q data format: {fmt}")
     return _wrap32(words).to(torch.int32)
+
+
+def synth_wire_ref(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
+                   n_out: int, fmt: int,
+                   nav_gather: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: same words, any device."""
+    i16, q16 = _quantized_iq(wire, ca_words, n_chan, -(-n_out // SUBBLOCK),
+                             nav_gather)
+    return _pack_words(i16, q16, fmt)
+
+
+def schedule_words(wire: torch.Tensor, ca_words: torch.Tensor, n_chan: int,
+                   n_out: int, fmt: int, ablate=frozenset()) -> torch.Tensor:
+    """The packed words of schedule_sums (window walk): with an empty
+    `ablate` the words of synth_wire_ref; with an ablation set the plain
+    version of that ablated instantiation (csrc/synth_profile.cu), whose
+    words are wrong by design."""
+    i, q = schedule_sums(wire, ca_words, n_chan, -(-n_out // SUBBLOCK),
+                         ablate=ablate)
+    return _pack_words(_quantize_acc(i), _quantize_acc(q), fmt)
 
 
 def synth_wire_planes_ref(wire: torch.Tensor, ca_words: torch.Tensor,

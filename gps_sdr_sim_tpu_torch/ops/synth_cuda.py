@@ -1,13 +1,19 @@
 """Build the port's CUDA sources, and bind csrc/synth.cu (the hand-written
-Hopper synthesis kernels: the wire form and the row form).
+Hopper synthesis kernels: the wire form and the row form) and
+csrc/synth_profile.cu (its ablated instantiations, for cost attribution).
 
 `build(source)` compiles one source of csrc/ with nvcc for sm_90a into a
 shared library with a plain C interface, at first use, into
 build/torch_kernels/ beside the package, named by the source's stem and
-hash so an edited source is rebuilt. Libraries are loaded with ctypes
-(csrc/synth.cu here, csrc/vpu_peak.cu by tools/vpu_peak.py). Nothing here
-runs at import: the CPU tests import this module on machines with no nvcc
-and no card.
+the hash of it and the csrc/ files it includes, so an edited source is
+rebuilt. Libraries are loaded with ctypes (csrc/synth.cu here,
+csrc/vpu_peak.cu by tools/vpu_peak.py). Nothing here runs at import: the
+CPU tests import this module on machines with no nvcc and no card.
+
+The ablated kernels (`launch_ablated`) write wrong samples by design. Only
+tools/profile_kernel.py, tools/op_budget.py and chip_smoke.py reach them
+(tests/test_torch_profile.py holds that): nothing on the runner, CLI,
+parallel or ops path does.
 """
 
 from __future__ import annotations
@@ -25,12 +31,14 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "synth.cu"
+PROFILE_SOURCE = _PKG / "csrc" / "synth_profile.cu"
 VPU_PEAK_SOURCE = _PKG / "csrc" / "vpu_peak.cu"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lib = None
+_profile_lib = None
 
 
 def nvcc_path() -> str:
@@ -46,8 +54,10 @@ def nvcc_path() -> str:
 
 
 def library_path(source: pathlib.Path = SOURCE) -> pathlib.Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = source.read_bytes()
+    for name in re.findall(rb'#include "([^"]+)"', text):
+        text += (source.parent / name.decode()).read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}_{digest[:16]}.so"
 
 
@@ -134,6 +144,45 @@ def instantiation_key(mangled: str):
     return _ROW_KEYS[r.group(1)] if r else None
 
 
+# The cost centres of csrc/synth.cu's Ablate bits, by the Pallas kernel's
+# `ablate` names, and the four sets that csrc/synth_profile.cu
+# instantiates (kPacked, walk, SC16/SC08/SC01 each).
+ABLATE_BITS = {"no_trig_gather": 1, "no_ca_gather": 2, "no_nav_walk": 4}
+ABLATION_SETS = {
+    "no_trig_gather": frozenset({"no_trig_gather"}),
+    "no_ca_gather": frozenset({"no_ca_gather"}),
+    "no_nav_walk": frozenset({"no_nav_walk"}),
+    "no_gathers": frozenset({"no_trig_gather", "no_ca_gather"}),
+}
+PROFILE_FORMATS = (16, 8, 1)
+
+
+def ablate_mask(ablate) -> int:
+    """The Ablate bits of a set of cost-centre names; raises ValueError
+    unless it is one of ABLATION_SETS."""
+    ablate = frozenset(ablate)
+    if ablate not in ABLATION_SETS.values():
+        raise ValueError(f"ablation set {sorted(ablate)} is not one of "
+                         f"{sorted(ABLATION_SETS)}")
+    return sum(ABLATE_BITS[name] for name in ablate)
+
+
+def profile_instantiation_key(mangled: str):
+    """The key of an ablated instantiation of csrc/synth_profile.cu,
+    synth_wire/<fmt>/<set name> (e.g. synth_wire/16/no_gathers), or None
+    for another function."""
+    m = re.match(r"\S*synth_profile_kernelILi(\d+)ELi(\d+)E", mangled)
+    if not m:
+        return None
+    by_mask = {ablate_mask(v): k for k, v in ABLATION_SETS.items()}
+    return f"synth_wire/{m.group(1)}/{by_mask[int(m.group(2))]}"
+
+
+def all_profile_keys() -> list:
+    return [f"synth_wire/{fmt}/{name}" for fmt in PROFILE_FORMATS
+            for name in ABLATION_SETS]
+
+
 def all_instantiation_keys() -> list:
     keys = list(_WIRE_KEYS.values())
     keys += [instantiation_key(f"synth_wire_kernelILi{m}ELi{f}ELb1E")
@@ -141,27 +190,37 @@ def all_instantiation_keys() -> list:
     return keys + list(_ROW_KEYS.values())
 
 
-def channel_loop_instructions(loops: dict) -> dict:
-    """SASS instructions per (sample, channel) of each synthesis
-    instantiation, from sass_loops: its channel loop is the loop that holds
-    the most shared-memory loads (two per sample, plus the channel's
-    state), kept rolled (csrc/synth.cu), and one trip covers the
-    SAMPLES_PER_TRIP samples of a thread; so its length over
-    SAMPLES_PER_TRIP is what one (sample, channel) issues, the channel's
-    per-thread setup included. Keys as instantiation_key."""
-    counts = {}
-    for fn, found in loops.items():
-        key = instantiation_key(fn)
+def channel_loops(loops: dict, key_of=instantiation_key,
+                  keys=None) -> dict:
+    """{key: one trip of its channel loop} of each synthesis instantiation,
+    from sass_loops: the channel loop is the kernel's longest loop, kept
+    rolled (csrc/synth.cu), one trip per (thread, channel) covering the
+    SAMPLES_PER_TRIP samples the thread owns. Keys by `key_of`
+    (instantiation_key, or profile_instantiation_key for the ablated
+    library); raises AssertionError unless they are exactly `keys`
+    (default all_instantiation_keys())."""
+    found = {}
+    for fn, fn_loops in loops.items():
+        key = key_of(fn)
         if key is None:
             continue
-        loads = [sum(o.startswith("LDS") for o in loop) for loop in found]
-        if not loads or max(loads) < 2 * SAMPLES_PER_TRIP:
+        loop = max(fn_loops, key=len, default=[])
+        if len(loop) < SAMPLES_PER_TRIP:
             raise AssertionError(f"no channel loop found in {fn}")
-        loop = found[loads.index(max(loads))]
-        counts[key] = len(loop) / SAMPLES_PER_TRIP
-    if sorted(counts) != sorted(all_instantiation_keys()):
-        raise AssertionError(f"SASS holds kernels {sorted(counts)}")
-    return counts
+        found[key] = loop
+    want = all_instantiation_keys() if keys is None else keys
+    if sorted(found) != sorted(want):
+        raise AssertionError(f"SASS holds kernels {sorted(found)}")
+    return found
+
+
+def channel_loop_instructions(loops: dict) -> dict:
+    """SASS instructions per (sample, channel) of each production synthesis
+    instantiation: its channel loop's length (channel_loops) over
+    SAMPLES_PER_TRIP, the channel's per-thread setup included. Keys as
+    instantiation_key."""
+    return {key: len(loop) / SAMPLES_PER_TRIP
+            for key, loop in channel_loops(loops).items()}
 
 
 def sass(lib: pathlib.Path) -> str:
@@ -197,6 +256,19 @@ def sass_loops(text: str) -> dict:
                               if w[0] != "NOP"])
         loops[block.split(None, 1)[0]] = found
     return loops
+
+
+def load_profile():
+    """The library of csrc/synth_profile.cu (built at first use)."""
+    global _profile_lib
+    if _profile_lib is None:
+        lib = ctypes.CDLL(str(build(PROFILE_SOURCE)))
+        fn = lib.synth_profile_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _profile_lib = lib
+    return _profile_lib
 
 
 def load():
@@ -251,6 +323,20 @@ def launch(wire: torch.Tensor, ca_words: torch.Tensor, table: torch.Tensor,
          ca_words.data_ptr(), table.data_ptr(), out.data_ptr(),
          wire.shape[0], wire.shape[1], n_chan, sub_blocks, fmt,
          int(nav_gather))
+
+
+def launch_ablated(wire: torch.Tensor, ca_words: torch.Tensor,
+                   table: torch.Tensor, out: torch.Tensor, n_chan: int,
+                   sub_blocks: int, fmt: int, ablate) -> None:
+    """Enqueue the ablated packed walk kernel of set `ablate` (one of
+    ABLATION_SETS) on the current stream of wire's device, as launch()
+    does the production one. Its words are wrong by design."""
+    mask = ablate_mask(ablate)
+    _check_devices(wire, ca_words, table, out)
+    call(load_profile(), "synth_profile_launch", wire.device,
+         wire.data_ptr(), ca_words.data_ptr(), table.data_ptr(),
+         out.data_ptr(), wire.shape[0], wire.shape[1], n_chan, sub_blocks,
+         fmt, mask)
 
 
 def launch_iq(wire: torch.Tensor, ca_words: torch.Tensor, table: torch.Tensor,

@@ -1,3 +1,6 @@
-"""Measurement tools of the port: the kernel A/B harness (ab_kernel) and the
-int32 throughput microbenchmark (vpu_peak). Run each with python -m.
-card holds the card's name line and the timer they share."""
+"""Tools of the port, each run with python -m: the kernel A/B harness
+(ab_kernel), the int32 throughput microbenchmark (vpu_peak), the kernel
+cost attribution (profile_kernel) and SASS budget (op_budget), the
+benchmark (bench), the scaling sweep (bench_scaling), the day run (dayrun)
+with its block sampler (deepcheck), and the UHD player (uhd_player). card
+holds the card's name line and the timer they share."""

@@ -7,7 +7,10 @@ checking that they write identical words: a mismatch exits 1 before any
 timing. Each rep times a burst of passes of each variant, best of the
 passes, and the burst order alternates from rep to rep so that a drifting
 clock favours neither; a variant's time is its best rep. Passes are timed
-with CUDA events. compare() is that gate and loop for any two callables.
+with CUDA events. compare() is that gate and loop for any two callables,
+and interleaved_times() the loop alone (tools/profile_kernel.py times its
+ablated variants with it, after a gate of its own, since they differ from
+one another by design).
 
 Variants:
   default     the window walk, as the main path runs it
@@ -53,14 +56,29 @@ def staged_batch(batch_epochs: int, device):
     return synth.stage_epochs(eb, device), scn.iq_buff_size
 
 
+def interleaved_times(fns: dict, passes: int = 7, reps: int = 4,
+                      device="cuda") -> dict:
+    """Time the callables {name: fn} in turns: each rep times a burst of
+    `passes` calls of each, best of the burst (CUDA events on a card, the
+    host clock otherwise), and the burst order alternates from rep to rep
+    so that a drifting clock favours none. No warm-up: the caller has
+    called each fn once. Returns {name: [best s of each rep]}."""
+    times = {name: [] for name in fns}
+    order = list(fns.items())
+    for rep in range(reps):
+        for name, fn in (order if rep % 2 == 0 else order[::-1]):
+            best = time_ms(fn, passes, device, warm=False) / 1e3
+            times[name].append(best)
+            print(f"rep{rep} {name}: {best:.6f} s", file=sys.stderr)
+    return times
+
+
 def compare(fns: dict, passes: int = 7, reps: int = 4,
             device="cuda") -> dict:
     """Variants {name: fn} of one computation, a first and b last (one
     entry for an A/A run): check that they return equal tensors, then time
-    them in turns. Each rep times a burst of `passes` calls of each
-    variant, best of the burst, and the burst order alternates from rep to
-    rep. Returns {"bit_equal"} and, when equal, {"reps_s", "best_s",
-    "b_over_a"}."""
+    them with interleaved_times (the check warms every variant). Returns
+    {"bit_equal"} and, when equal, {"reps_s", "best_s", "b_over_a"}."""
     outs = [fn() for fn in fns.values()]
     outs = [(o,) if torch.is_tensor(o) else o for o in outs]
     out = {"bit_equal": all(torch.equal(x, y) for o in outs[1:]
@@ -68,16 +86,10 @@ def compare(fns: dict, passes: int = 7, reps: int = 4,
     del outs
     if not out["bit_equal"]:
         return out
-    times = {name: [] for name in fns}
-    order = list(fns.items())
-    for rep in range(reps):
-        for name, fn in (order if rep % 2 == 0 else order[::-1]):
-            # The equality check above warmed both variants.
-            best = time_ms(fn, passes, device, warm=False) / 1e3
-            times[name].append(best)
-            print(f"rep{rep} {name}: {best:.6f} s", file=sys.stderr)
+    times = interleaved_times(fns, passes, reps, device)
     best = {name: min(t) for name, t in times.items()}
-    a, b = order[0][0], order[-1][0]
+    names = list(fns)
+    a, b = names[0], names[-1]
     out.update(reps_s=times, best_s=best, b_over_a=best[b] / best[a])
     return out
 

@@ -27,7 +27,8 @@ from gps_sdr_sim_tpu_torch.testing import (
     rx_capture,
     rx_scenario,
 )
-from gps_sdr_sim_tpu_torch.tools import vpu_peak
+from gps_sdr_sim_tpu_torch.ops import synth_cuda
+from gps_sdr_sim_tpu_torch.tools import profile_kernel, vpu_peak
 
 
 @pytest.mark.gpu
@@ -198,6 +199,50 @@ def test_vpu_peak_kernel_matches_plain_version():
         assert vpu_peak.launch_counts["vpu_peak"] == before + 1
         assert torch.equal(got, vpu_peak.vpu_peak_ref(seed, table, 3, 5,
                                                       case)), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", [16, 8, 1])
+def test_ablated_kernels_match_plain_versions(fmt):
+    """Every ablated instantiation (csrc/synth_profile.cu) = its plain
+    version, ops.synth.schedule_words with its ablation set, word for
+    word; and each writes other words than the production kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    for seed in range(3):
+        wire, ca, n_chan = random_wire(seed, n_epochs=3, max_gain=400)
+        w, c = torch.from_numpy(wire).to(dev), torch.from_numpy(ca).to(dev)
+        production = synth.synth_wire(w, c, n_chan, 5000, fmt)
+        for name, ablate in synth_cuda.ABLATION_SETS.items():
+            before = profile_kernel.launch_counts["synth_wire_ablated"]
+            got = profile_kernel.synth_wire_ablated(w, c, n_chan, 5000, fmt,
+                                                    ablate)
+            assert profile_kernel.launch_counts["synth_wire_ablated"] == \
+                before + 1
+            want = synth.schedule_words(w, c, n_chan, 5000, fmt, ablate)
+            assert torch.equal(got, want), (seed, name)
+            assert not torch.equal(got, production), (seed, name)
+
+
+@pytest.mark.gpu
+def test_production_library_is_the_production_loop():
+    """The ablation mask is 0 in every production instantiation: the
+    production library holds exactly its 12 instantiations, each at 18.625
+    SASS per (sample, channel) (298 per trip of 16 samples), 72 registers
+    and no spills, as before the mask existed (nvcc 12.9)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = synth_cuda.build()
+    counts = synth_cuda.channel_loop_instructions(synth_cuda.sass_loops(
+        synth_cuda.sass(lib)))
+    assert sorted(counts) == sorted(synth_cuda.all_instantiation_keys())
+    assert set(counts.values()) == {298 / 16}
+    usage = [u for fn, u in synth_cuda.ptxas_usage(
+        synth_cuda.build_log(lib)).items() if synth_cuda.instantiation_key(fn)]
+    assert len(usage) == 12
+    assert {(u["registers"], u["spill_stores"], u["spill_loads"])
+            for u in usage} == {(72, 0, 0)}
 
 
 @pytest.mark.gpu

@@ -12,7 +12,10 @@
   card, and a 1,2-process --multihost sweep on the CPU;
 - utils/playerfmt: the cases of tests/test_tools.py against the port's
   copy of the ctypes binding (1-bit expansion of the port's SC01 packing,
-  rescaling, the SDR option clamps)."""
+  rescaling, the SDR option clamps);
+- tools/uhd_player: --sink writes the JAX tool's bytes in every format;
+- the CLI's -o - piped into tools/gps-sdr-player -f - gives what the
+  player gives on the same capture read from a file."""
 
 import importlib.util
 import json
@@ -39,6 +42,7 @@ from gps_sdr_sim_tpu_torch.tools import (
     ab_kernel,
     bench_scaling,
     card,
+    uhd_player,
     vpu_peak,
 )
 from gps_sdr_sim_tpu_torch.utils import playerfmt
@@ -426,3 +430,72 @@ def test_playerfmt_sdr_option_clamps(port_playerfmt):
     assert pf.hackrf_filter_bw(2600000) == 2500000
     assert pf.hackrf_filter_bw(1750000) == 1750000
     assert pf.hackrf_filter_bw(10000000) == 9000000
+
+
+# ---------------------------------------------------------------------------
+# tools/uhd_player and the player pipe.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [16, 8, 1])
+def test_uhd_player_sink_matches_jax_tool(tmp_path, bits):
+    """--sink writes the JAX tool's fc32 bytes (scale 1/2048; x16 for SC08,
+    x1000 for SC01), over more than one chunk; and torch.cuda is left
+    alone."""
+    pairs = uhd_player.CHUNK + 1000
+    n_bytes = {16: 4 * pairs, 8: 2 * pairs, 1: pairs // 4}[bits]
+    src = tmp_path / "sim.bin"
+    src.write_bytes(np.random.default_rng(bits).integers(
+        0, 256, n_bytes, dtype=np.uint8).tobytes())
+    ours, theirs = tmp_path / "ours.fc32", tmp_path / "theirs.fc32"
+    assert uhd_player.main(["-t", str(src), "-b", str(bits), "--no-repeat",
+                            "--sink", str(ours)]) == 0
+    subprocess.run([sys.executable, str(ROOT / "tools" / "uhd_player.py"),
+                    "-t", str(src), "-b", str(bits), "--no-repeat",
+                    "--sink", str(theirs)], check=True, capture_output=True)
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert ours.stat().st_size == 8 * {16: pairs, 8: pairs, 1: 4 * (
+        pairs // 4)}[bits]
+    assert not torch.cuda.is_initialized()
+
+
+def test_uhd_player_without_uhd_or_sink(tmp_path, capsys):
+    src = tmp_path / "sim.bin"
+    src.write_bytes(bytes(16))
+    assert uhd_player.main(["-t", str(src), "--no-repeat"]) == 1
+    assert capsys.readouterr().err == (
+        "ERROR: UHD python module not available; use --sink FILE to "
+        "exercise the format path without hardware.\n")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_cli_stdout_piped_into_the_player(tmp_path):
+    """The port's CLI with -o - (--impl torch --device cpu, 0.3 s, 1 Msps)
+    piped into gps-sdr-player -f - gives the player's output on the same
+    capture written to a file. The player is built in a copy of tools/,
+    so two test processes never run make in one directory."""
+    src = tmp_path / "tools"
+    shutil.copytree(ROOT / "tools", src, ignore=shutil.ignore_patterns(
+        "gps-sdr-player", "nmea2um", "iqcompare", "*.so", "*.py",
+        "*.script"))
+    subprocess.run(["make", "-C", str(src), "gps-sdr-player"], check=True,
+                   capture_output=True)
+    player = str(src / "gps-sdr-player")
+    cli = [sys.executable, "-m", "gps_sdr_sim_tpu_torch.cli", *STATIC,
+           "--impl", "torch", "--device", "cpu"]
+    cap, piped, direct = (tmp_path / n for n in ("cap.bin", "piped.bin",
+                                                 "direct.bin"))
+    subprocess.run(cli + ["-o", str(cap)], check=True, capture_output=True,
+                   cwd=ROOT)
+    gen = subprocess.Popen(cli + ["-o", "-"], stdout=subprocess.PIPE,
+                           stderr=subprocess.DEVNULL, cwd=ROOT)
+    play = subprocess.run([player, "-f", "-", "-b", "16", "-B", "file",
+                           "-o", str(piped)], stdin=gen.stdout,
+                          capture_output=True)
+    gen.stdout.close()
+    assert gen.wait(timeout=120) == 0 and play.returncode == 0, play.stderr
+    subprocess.run([player, "-f", str(cap), "-b", "16", "-B", "file", "-o",
+                    str(direct)], check=True, capture_output=True)
+    assert cap.stat().st_size == 4 * 200000  # 2 epochs of 0.1 s, SC16
+    assert piped.read_bytes() == direct.read_bytes()
+    assert direct.read_bytes()[:cap.stat().st_size] == cap.read_bytes()
