@@ -118,6 +118,26 @@ of findings (any failure raises and exits non-zero):
     through tools/uhd_player --sink, whose fc32 stream must equal a NumPy
     decode of the capture. The ablated kernels are not kernels of the JAX
     package's table, so the kernel report does not list them.
+ 17. the randomized CLI matrix (gps_sdr_sim_tpu_torch.tools.fuzz_oracle):
+    the first 16 cases of seed 0, all of FORCED (eight short crossings of
+    the fixed-point carrier with NMEA, rocket, satellite, -t and -T; eight
+    31-95 s runs across the 30 s nav and re-allocation boundaries), each
+    through fuzz_oracle.run_case, four at a time: the CLI with --impl cuda
+    against the CLI with --impl torch on the same card standing in for the
+    C oracle (with --carrier-phase fixed where the case's carrier is
+    fixed). Every case must pass compare_case with equal bytes (mismatch
+    fraction 0, max delta 0) and equal canonical stderr; the stand-in must
+    launch no kernel. Prints each case's argv, samples and both walls.
+ 18. the RTK closures (gps_sdr_sim_tpu_torch.tools.rtk_oracle) as a
+    subprocess, at the tool's own size, with the CLI (--impl cuda) behind
+    an executable wrapper as its --oracle: four 26 s SC16 captures at 2.048
+    Msps from the CUDA kernel, acquired and tracked on the card. The
+    static closure must fix within 10 mm and the kinematic closure (a
+    rover on circle.csv, the base at its centroid) must fix with every
+    epoch within 50 mm of the trajectory; each capture, made again by the
+    plain version on the card, must have the same sha256. Prints the
+    report's numbers beside RTK_ORACLE_r02.json's (the C reference's
+    captures) and the phase's wall.
 
 The line before the last is the kernel report (each synthesis row with its
 design, DESIGN); the last line is {"ok": true, "device": {...}}.
@@ -159,6 +179,31 @@ def tool(module: str) -> str:
                           f"run_name='__main__')")
 
 
+def counted(module: str, log: pathlib.Path, extra=(),
+            hash_output: bool = False) -> str:
+    """A program like tool(module)'s, with `extra` appended to its
+    arguments, that then appends one JSON line to `log`: its arguments
+    (without `extra`), the kernels' launch counts of its run and, with
+    `hash_output`, the sha256 of the file its -o names."""
+    return IMPORT_HOOK + (
+        f"import hashlib, json, runpy, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"argv = sys.argv[1:]\n"
+        f"sys.argv += {list(extra)!r}\n"
+        f"from gps_sdr_sim_tpu_torch.ops import synth\n"
+        f"try:\n"
+        f"    runpy.run_module('gps_sdr_sim_tpu_torch.{module}', "
+        f"run_name='__main__')\n"
+        f"finally:\n"
+        f"    entry = {{'argv': argv, 'launches': synth.launch_counts}}\n"
+        f"    if {hash_output!r}:\n"
+        f"        with open(argv[argv.index('-o') + 1], 'rb') as f:\n"
+        f"            entry['sha256'] = hashlib.file_digest(\n"
+        f"                f, 'sha256').hexdigest()\n"
+        f"    with open({str(log)!r}, 'a') as f:\n"
+        f"        f.write(json.dumps(entry) + '\\n')\n")
+
+
 CLI = tool("cli")
 BENCH = tool("tools.bench")
 # The kernel each bench impl must launch (None: no kernel).
@@ -190,6 +235,8 @@ VPU_PEAK_REPLACES = "tools/vpu_peak.py:58"
 DESIGN = "channels outer, stepped phases, per-chip sign words"
 NAV_SWITCH = "GPS_SDR_SIM_NAV_GATHER"
 RATES = (1.0e6, 1310720.0, 1331200.0, 2.6e6)
+# Phase 17's cases in flight at once, each one CLI process at a time.
+FUZZ_WORKERS = 4
 FORMATS = (16, 8, 1)
 
 
@@ -1436,6 +1483,138 @@ def phase_attribution(torch, dev, card: str) -> None:
     say(f"phase 16 attribution: {time.perf_counter() - t0:.2f} s")
 
 
+def read_log(log: pathlib.Path) -> list:
+    """The JSON lines that counted() programs appended to `log`."""
+    return [json.loads(ln) for ln in log.read_text().splitlines()]
+
+
+def phase_fuzz() -> dict:
+    """Phase 17: the FORCED cases of fuzz_oracle's seed 0 through run_case,
+    FUZZ_WORKERS at a time, the CLI's kernel against its plain version on
+    the card. Returns synth_wire's launches and the largest |diff|."""
+    from gps_sdr_sim_tpu_torch.tools import fuzz_oracle
+
+    cases = fuzz_oracle.gen_cases(len(fuzz_oracle.FORCED), 0)
+
+    def run(k: int, td: pathlib.Path) -> tuple:
+        tmp = td / str(k)
+        tmp.mkdir()
+        case = cases[k]
+        ours = [sys.executable, "-c", counted("cli", tmp / "cuda.jsonl"),
+                "--impl", "cuda", "--device", "cuda"]
+        plain = [sys.executable, "-c", counted("cli", tmp / "torch.jsonl"),
+                 "--impl", "torch", "--device", "cuda"]
+        if case["fixed_carr"]:
+            plain += ["--carrier-phase", "fixed"]
+        r = fuzz_oracle.run_case(case, ours, plain, tmp, timeout=600)
+        return (r, read_log(tmp / "cuda.jsonl")[0]["launches"],
+                read_log(tmp / "torch.jsonl")[0]["launches"])
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, \
+            ThreadPoolExecutor(FUZZ_WORKERS) as pool:
+        done = list(pool.map(run, range(len(cases)),
+                             [pathlib.Path(td)] * len(cases)))
+    wall = time.perf_counter() - t0
+    launches, samples, worst = 0, 0, 0
+    for k, (r, cuda, plain) in enumerate(done):
+        equal = (r.get("pass") is True and r["size_match"]
+                 and r["stderr_match"] and r["mismatch_fraction"] == 0
+                 and r["max_delta"] == 0)
+        if not equal:
+            raise AssertionError(f"phase 17 case {k}: the kernel's CLI run "
+                                 f"!= its plain version's: {json.dumps(r)}")
+        if {name for name, n in cuda.items() if n} != {"synth_wire"} or \
+                any(plain.values()):
+            raise AssertionError(f"phase 17 case {k}: launches {cuda} "
+                                 f"(cuda), {plain} (torch)")
+        launches += cuda["synth_wire"]
+        samples += r["samples"]
+        worst = max(worst, r["max_delta"])
+        argv = " ".join(r["argv"]).replace(f"{ROOT}/", "")
+        say(f"phase 17 case {k} ({r['carrier']} carrier): {argv}: "
+            f"{r['samples']} values equal, stderr equal; cuda "
+            f"{r['ours_s']:.2f} s, torch {r['oracle_s']:.2f} s; synth_wire "
+            f"launches {cuda['synth_wire']}")
+    say(f"phase 17 fuzz: {len(done)} cases of seed 0 (8 short, 8 of 31-95 "
+        f"s), {samples} values, every byte and canonical stderr line of "
+        f"--impl cuda = --impl torch on the card, {FUZZ_WORKERS} at a time; "
+        f"{launches} synth_wire launches; {wall:.2f} s")
+    return {"synth_wire": launches, "max_abs_err": worst}
+
+
+def phase_rtk() -> dict:
+    """Phase 18: tools/rtk_oracle as a subprocess through IMPORT_HOOK, its
+    --oracle a wrapper that runs the CLI with --impl cuda; then each of its
+    captures again by the plain version on the card. Returns synth_wire's
+    launches and the largest |diff| (0: equal hashes)."""
+    from gps_sdr_sim_tpu_torch.cli import main as cli_main
+
+    want = json.loads((ROOT / "RTK_ORACLE_r02.json").read_text())["closures"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        tmp = pathlib.Path(td)
+        log, wrapper = tmp / "oracle.jsonl", tmp / "gps-sdr-sim"
+        wrapper.write_text(f"#!{sys.executable}\n" + counted(
+            "cli", log, ["--impl", "cuda"], hash_output=True))
+        wrapper.chmod(0o755)
+        proc = subprocess.run(
+            [sys.executable, "-c", tool("tools.rtk_oracle"), "--oracle",
+             str(wrapper), "--json", str(tmp / "rtk.json")],
+            cwd=ROOT, capture_output=True, text=True, timeout=900,
+            env={**os.environ, "TMPDIR": str(tmp)})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"rtk_oracle exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        got = json.loads((tmp / "rtk.json").read_text())["closures"]
+        calls = read_log(log)
+        t = time.perf_counter()
+        plain = tmp / "plain.bin"
+        for c in calls:
+            argv = list(c["argv"])
+            argv[argv.index("-o") + 1] = str(plain)
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = cli_main(argv + ["--impl", "torch"])
+            with open(plain, "rb") as f:
+                sha = hashlib.file_digest(f, "sha256").hexdigest()
+            plain.unlink()
+            if rc != 0 or sha != c["sha256"]:
+                raise AssertionError(f"phase 18: the plain version's capture "
+                                     f"of {argv} (exit {rc}) != the kernel's")
+        plain_s = time.perf_counter() - t
+    st, kn = got["static"], got["kinematic"]
+    if not (st["fixed"] and st["fixed_error_mm"] < 10 and st["pass"]
+            and kn["fixed"] and kn["track_err_max_mm"] < 50 and kn["pass"]):
+        raise AssertionError(f"phase 18: closures {json.dumps(got)}")
+    launches = [c["launches"] for c in calls]
+    if len(calls) != 4 or any(
+            {name for name, k in n.items() if k} != {"synth_wire"}
+            for n in launches):
+        raise AssertionError(f"phase 18: {len(calls)} oracle runs, "
+                             f"launches {launches}")
+    n = sum(x["synth_wire"] for x in launches)
+    ws, wk = want["static"], want["kinematic"]
+    say(f"phase 18 RTK static: fixed, error {st['fixed_error_mm']} mm "
+        f"(C oracle {ws['fixed_error_mm']}), ratio {st['ratio']} "
+        f"({ws['ratio']}), DD phase rms {st['dd_phase_rms_mm']} mm "
+        f"({ws['dd_phase_rms_mm']}), {st['n_sats']} satellites, "
+        f"{st['n_epochs']} epochs, {st['n_slips']} slips")
+    say(f"phase 18 RTK kinematic: fixed, worst {kn['track_err_max_mm']} mm "
+        f"(C oracle {wk['track_err_max_mm']}), mean "
+        f"{kn['track_err_mean_mm']} mm ({wk['track_err_mean_mm']}), ratio "
+        f"{kn['ratio']} ({wk['ratio']}), DD phase rms "
+        f"{kn['dd_phase_rms_mm']} mm ({wk['dd_phase_rms_mm']}), "
+        f"{kn['n_sats']} satellites, {kn['n_epochs']} epochs, "
+        f"{kn['n_slips']} slips")
+    say(f"phase 18 RTK: four 26 s SC16 captures at 2.048 Msps by the CUDA "
+        f"kernel ({n} synth_wire launches; each = the plain version's on "
+        f"the card by sha256, {plain_s:.2f} s), tracked on the card; "
+        f"rtk_oracle {wall:.2f} s")
+    return {"synth_wire": n, "max_abs_err": 0}
+
+
 def main() -> int:
     if not (ROOT / KERNEL_SOURCE).is_file():
         print(f"FAIL: {KERNEL_SOURCE} not found beside chip_smoke.py; run "
@@ -1481,10 +1660,12 @@ def main() -> int:
     day = phase_day(torch, dev)
     phase_bench(card)
     phase_attribution(torch, dev, card)
+    fuzz = phase_fuzz()
+    rtk = phase_rtk()
 
     # Each kernel's launches on the path that runs it.
     paths = {"synth_wire": launches["synth_wire"] + rx["synth_wire"]
-             + day["synth_wire"],
+             + day["synth_wire"] + fuzz["synth_wire"] + rtk["synth_wire"],
              "synth_wire_planes": sharded["1x1"][0]["synth_wire_planes"],
              "synth_wire_raw": sharded["2x2"][0]["synth_wire_raw"],
              "synth_wire_nav": nav_launches["synth_wire_nav"],
@@ -1522,15 +1703,20 @@ def main() -> int:
                "design": DESIGN}
         if name == "synth_wire":
             row["max_abs_err"] = max(max_err[name], rx["max_abs_err"],
-                                     day["max_abs_err"])
+                                     day["max_abs_err"], fuzz["max_abs_err"],
+                                     rtk["max_abs_err"])
             row["launches_by_path"] = {
                 "phase 6 canonical": launches["synth_wire"],
                 "phase 12 receiver": rx["synth_wire"],
-                "phase 14 day run": day["synth_wire"]}
+                "phase 14 day run": day["synth_wire"],
+                "phase 17 fuzz": fuzz["synth_wire"],
+                "phase 18 RTK": rtk["synth_wire"]}
             row["max_abs_err_by_path"] = {
                 "phase 3 kernel vs plain": max_err[name],
                 "phase 12 receiver": rx["max_abs_err"],
-                "phase 14 day run": day["max_abs_err"]}
+                "phase 14 day run": day["max_abs_err"],
+                "phase 17 fuzz": fuzz["max_abs_err"],
+                "phase 18 RTK": rtk["max_abs_err"]}
         if packed:
             for field, i in (("ms", 0), ("plain_ms", 1), ("bound_ms", 2)):
                 row[f"{field}_by_format"] = {

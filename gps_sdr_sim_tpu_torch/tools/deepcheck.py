@@ -53,7 +53,8 @@ REF_SOURCES = ("gpssim.c", "gpssim.h")
 
 
 class ReferenceMissing(RuntimeError):
-    """The C reference's sources are not where the oracle is built from."""
+    """The C reference cannot be built: its sources are not where the
+    oracle is built from, or gcc is not on PATH."""
 
 
 def static_config(samp_freq: float, duration: float, data_format: int = 16):
@@ -73,10 +74,14 @@ def oracle_command(oracle, duration: float, samp_freq: float,
             "-s", str(int(samp_freq)), "-b", str(fmt), "-o", "-"]
 
 
-def build_oracle(tmp: pathlib.Path, ref: pathlib.Path = None) -> pathlib.Path:
-    """Compile the C reference in `tmp`; raises ReferenceMissing if `ref`
-    (default REF) lacks its sources."""
-    ref = REF if ref is None else pathlib.Path(ref)
+def build_oracle(tmp: pathlib.Path, ref: pathlib.Path = None,
+                 fixed: bool = False) -> pathlib.Path:
+    """Compile the C reference in `tmp` (made if absent); raises
+    ReferenceMissing if `ref` (default REF) lacks its sources or gcc is
+    not on PATH. With `fixed`, gpssim.h's FLOAT_CARR_PHASE is commented
+    out: the 32-bit fixed-point carrier NCO, the oracle of --carrier-phase
+    fixed. Every tool that runs the C reference builds it here."""
+    tmp, ref = pathlib.Path(tmp), REF if ref is None else pathlib.Path(ref)
     missing = [f for f in REF_SOURCES if not (ref / f).is_file()]
     if missing:
         raise ReferenceMissing(
@@ -84,8 +89,16 @@ def build_oracle(tmp: pathlib.Path, ref: pathlib.Path = None) -> pathlib.Path:
             f"{', '.join(missing)}); pass --reference DIR or set "
             f"GPS_SDR_SIM_REFERENCE to the directory holding gpssim.c and "
             f"gpssim.h")
-    for f in REF_SOURCES:
-        shutil.copy(ref / f, tmp / f)
+    if shutil.which("gcc") is None:
+        raise ReferenceMissing(f"gcc is not on PATH, so the C reference in "
+                               f"{ref} cannot be built")
+    tmp.mkdir(parents=True, exist_ok=True)
+    shutil.copy(ref / "gpssim.c", tmp / "gpssim.c")
+    header = (ref / "gpssim.h").read_bytes()
+    if fixed:
+        header = header.replace(b"#define FLOAT_CARR_PHASE",
+                                b"// #define FLOAT_CARR_PHASE")
+    (tmp / "gpssim.h").write_bytes(header)
     subprocess.run(["gcc", "gpssim.c", "-lm", "-O3", "-o", "gps-sdr-sim"],
                    cwd=tmp, check=True, capture_output=True)
     return tmp / "gps-sdr-sim"

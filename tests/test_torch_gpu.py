@@ -373,3 +373,22 @@ def test_bench_passes_on_the_card_match_the_cpu(impl):
         bench.end_to_end_pass(scn, sink, 4, impl, dev, mesh)
         assert (wrap_int32(sink.sum), sink.nonzero) == (
             want.checksum, want.nonzero), fmt
+
+
+@pytest.mark.gpu
+def test_fuzz_cases_cuda_equal_plain_version(tmp_path):
+    """The first two FORCED cases of fuzz_oracle's seed 0 through run_case:
+    the CLI with --impl cuda against the CLI with --impl torch on the same
+    card standing in for the C oracle give equal bytes and stderr."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from gps_sdr_sim_tpu_torch.tools import fuzz_oracle
+
+    for case in fuzz_oracle.gen_cases(2, 0):
+        stand_in = fuzz_oracle.cli_command("torch", "cuda")
+        if case["fixed_carr"]:
+            stand_in += ["--carrier-phase", "fixed"]
+        r = fuzz_oracle.run_case(case, fuzz_oracle.cli_command("cuda", "cuda"),
+                                 stand_in, tmp_path, timeout=600)
+        assert r["pass"] and r["size_match"] and r["stderr_match"], r
+        assert (r["mismatch_fraction"], r["max_delta"]) == (0, 0), r
