@@ -71,7 +71,13 @@ of findings (any failure raises and exits non-zero):
     5 mm; on the first 2 s of the base the search, acquisition and tracking
     on the card agree with the same functions on the CPU within the CPU
     tests' tolerances. Prints acquisition, tracking, decode/PVT and RTK
-    times;
+    times. Then the int8 circulant search (receiver.acquire_mxu, its
+    products through torch._int_mm on the int8 tensor cores): on the base
+    capture it detects the 13 PRNs acquire() detects on the card, at the
+    same code phases and Doppler within 20 Hz, and on the first 2 s it
+    agrees with its CPU run within SEARCH_RTOL; prints its search time
+    beside the FFT search's, its products' time beside their bound at the
+    published 1,979 int8 TOPS, and acquire_mxu()'s wall beside acquire()'s;
  13. the DeviceBatch path: (a) the canonical workload planned by plan_batch
     in 100-epoch batches through ops.synth.synth_batch (the row kernel,
     planes) and parallel.synth_rows_sharded on a 2x2 mesh of this card (raw
@@ -1031,7 +1037,132 @@ def phase_receiver(torch, dev, card: str) -> dict:
         f"solve_baseline) {rtk_s:.2f} s; synth_wire launches in this phase "
         f"{launches}, kernel = plain version on every capture (max |diff| "
         f"{worst})")
+    phase_mxu(torch, dev, card, load_iq(base, 16), x2, (xb, codes, dopp),
+              search_ms)
     return {"synth_wire": launches, "max_abs_err": worst}
+
+
+def phase_mxu(torch, dev, card: str, x26, x2, prep, fft_ms: float) -> None:
+    """Phase 12, the int8 circulant search (receiver.acquire_mxu) on the
+    card: on the 26 s base capture x26 it must detect the PRNs that
+    acquire() detects (13), at the same code phases and within 20 Hz; on
+    its first 2 s (x2) it must agree with its CPU run within SEARCH_RTOL.
+    Times the search on prep, search_prep's (blocks, codes, Doppler grid)
+    of the rover, beside the FFT search's fft_ms on them (CUDA events; and
+    the host's enqueue alone), its int8 products alone, and acquire_mxu()
+    beside acquire(); one search and one pass of the products under
+    torch.profiler give the card's busy time and its kernels."""
+    from gps_sdr_sim_tpu_torch.receiver import acquire, acquire_mxu
+    from gps_sdr_sim_tpu_torch.receiver.acquire_mxu import (
+        circulant,
+        circulant_index,
+        int_mm_padded,
+        padded_shape,
+        search_inputs,
+        search_mxu,
+        wipe_int8,
+    )
+    from gps_sdr_sim_tpu_torch.testing import RX_FS, mxu_devices_agree
+    from gps_sdr_sim_tpu_torch.tools.card import (
+        HBM_BYTES_PER_S,
+        INT8_OPS_PER_S,
+        time_ms,
+    )
+
+    walls, results = {}, {}
+    for fn in (acquire, acquire_mxu, acquire, acquire_mxu):
+        t = time.perf_counter()
+        results[fn.__name__] = fn(x26, RX_FS, dopp_step=50.0, device=dev)
+        walls.setdefault(fn.__name__, []).append(
+            (time.perf_counter() - t) * 1e3)
+    fft, mxu = results["acquire"], results["acquire_mxu"]
+    found = [a.prn for a in fft if a.detected]
+    if [a.prn for a in mxu] != [a.prn for a in fft] or len(found) != 13:
+        raise AssertionError(f"acquire_mxu PRNs {[a.prn for a in mxu]}, "
+                             f"acquire detected {found}")
+    for g, f in zip(mxu, fft):
+        if g.detected != f.detected or (g.detected and (
+                g.code_phase != f.code_phase
+                or abs(g.doppler - f.doppler) >= 20.0)):
+            raise AssertionError(f"acquire_mxu {g} != acquire {f}")
+    dopp_err = max(abs(g.doppler - f.doppler)
+                   for g, f in zip(mxu, fft) if g.detected)
+    agree = mxu_devices_agree(x2, RX_FS, dev)
+
+    x_re, x_im, codes8, dopp_hz = search_inputs(*prep, dev)
+
+    def search():
+        return search_mxu(x_re, x_im, codes8, dopp_hz, RX_FS)
+
+    w8 = wipe_int8(x_re, x_im, dopp_hz, RX_FS)
+    idx = circulant_index(x_re.shape[1], dev)
+    circs = [circulant(c, idx) for c in codes8]
+    row_major = [c.t().contiguous() for c in circs]
+
+    def products():
+        return [int_mm_padded(w8, c) for c in circs]
+
+    search_ms = time_ms(search, 5, dev)
+    enqueue_ms = time_ms(search, 5, "cpu")  # the host's clock, no wait
+    torch.cuda.synchronize()
+    mm_ms = time_ms(products, 5, dev)
+    mm_row_ms = time_ms(lambda: [torch._int_mm(w8, c) for c in row_major],
+                        5, dev)
+    traced = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("search", search), ("products", products)):
+            path = pathlib.Path(tmp) / f"{name}.json"
+            # One pass of warm-up under the profiler, then the pass traced.
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA],
+                    schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                     active=1),
+                    on_trace_ready=lambda p: p.export_chrome_trace(
+                        str(path))) as prof:
+                for _ in range(2):
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            _, kernels, busy_us, _ = read_trace(path)
+            if dev.type == "cuda" and not kernels:
+                raise AssertionError(f"the {name} trace holds no kernel")
+            by_name = {}
+            for e in kernels:
+                n, us = by_name.get(e["name"], (0, 0.0))
+                by_name[e["name"]] = (n + 1, us + e["dur"])
+            traced[name] = (len(kernels), busy_us / 1e3, sorted(
+                by_name.items(), key=lambda kv: -kv[1][1])[:4])
+    rows, n = padded_shape(*w8.shape)
+    ops = 2 * rows * n * n * len(circs)
+    bound_ms = ops / INT8_OPS_PER_S * 1e3
+    out_mb = rows * n * 4 * len(circs) / 1e6
+    say(f"phase 12 acquire_mxu on {dev}: on the 26 s base capture the "
+        f"{len(found)} PRNs acquire() detects, same code phases, Doppler "
+        f"within {dopp_err:.3g} Hz; card vs CPU on the first 2 s "
+        f"({agree['channels']} channels): search rel "
+        f"{agree['search_rel']:.3g}, metric rel {agree['metric_rel']:.3g} "
+        f"(SEARCH_RTOL)")
+    say(f"phase 12 acquire_mxu times on {card}: int8 search (32 PRNs x "
+        f"{len(dopp_hz)} bins x 4 ms) {search_ms:.4f} ms beside the FFT "
+        f"search's {fft_ms:.4f} ms (CUDA events, best of 5; the host's "
+        f"enqueue of one search {enqueue_ms:.4f} ms); its 32 int8 products "
+        f"[{rows}, {n}] x [{n}, {n}] alone {mm_ms:.4f} ms (circulant "
+        f"column-major; row-major {mm_row_ms:.4f} ms): {ops:,} int8 "
+        f"operations, bound {bound_ms:.4f} ms at "
+        f"{INT8_OPS_PER_S / 1e12:,.0f} TOPS, share of the bound: products "
+        f"{bound_ms / mm_ms:.3f}, search {bound_ms / search_ms:.3f}; int32 "
+        f"products {out_mb:.1f} MB "
+        f"({out_mb * 1e6 / HBM_BYTES_PER_S * 1e3:.4f} ms written once at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); wall on the base capture, "
+        f"first/second call: acquire() "
+        f"{'/'.join(f'{v:.1f}' for v in walls['acquire'])} ms, "
+        f"acquire_mxu() "
+        f"{'/'.join(f'{v:.1f}' for v in walls['acquire_mxu'])} ms")
+    for name, (count, busy_ms, top) in traced.items():
+        say(f"phase 12 acquire_mxu trace, one {name} pass: {count} kernels, "
+            f"card busy {busy_ms:.4f} ms; most time: " + "; ".join(
+                f"{k[:60]} x{c} {us / 1e3:.4f} ms" for k, (c, us) in top))
 
 
 def device_checksum(torch, packed) -> tuple[int, int]:

@@ -82,6 +82,8 @@ def main(argv=None) -> int:
     print(f"loaded {len(x):,} samples ({len(x) / ns.samp_freq:.2f} s)",
           file=sys.stderr)
 
+    # The JAX CLI takes acquire_mxu only on a backend without complex64;
+    # CUDA and the CPU both have it, so the FFT search always.
     acq = acquire(x, ns.samp_freq, dopp_max=ns.dopp_max,
                   dopp_step=ns.dopp_step, device=device)
     print("PRN  doppler[Hz]  code_phase[samp]  metric")

@@ -157,11 +157,11 @@ RX_ROVER = llh2xyz(np.array([(35.681298 + 0.00020) / R2D,
                              (139.766247 + 0.00025) / R2D, 12.0]))
 
 
-def rx_scenario(duration: float, xyz=TOKYO):
-    """The receiver's static scenario: `xyz`, 2.048 Msps, SC16."""
+def rx_scenario(duration: float, xyz=TOKYO, fs: float = RX_FS):
+    """The receiver's static scenario: `xyz`, `fs` (2.048 Msps), SC16."""
     return build_scenario(ScenarioConfig(
         nav_file=str(NAV), static_xyz=xyz, duration=duration,
-        samp_freq=RX_FS, data_format=16))
+        samp_freq=fs, data_format=16))
 
 
 def rx_capture(scn, impl: str, device) -> np.ndarray:
@@ -262,6 +262,29 @@ def receiver_devices_agree(x: np.ndarray, device, ref="cpu") -> dict:
         acquire(x, RX_FS, dopp_step=50.0, device=device), want)
     err.update(check_tracking(track(x, RX_FS, want, device=device),
                               track(x, RX_FS, want, device=ref)))
+    err["channels"] = sum(a.detected for a in want)
+    return err
+
+
+def mxu_devices_agree(x: np.ndarray, fs: float, device, ref="cpu") -> dict:
+    """acquire_mxu's int8 search (all 32 PRNs, +-5 kHz at 50 Hz steps, 4
+    blocks of 1 ms) and its AcqResults on `device` against `ref`, on x at
+    fs. Raises AssertionError beyond SEARCH_RTOL; returns the largest
+    relative differences and the detected channels."""
+    from gps_sdr_sim_tpu_torch.receiver.acquire import search_prep
+    from gps_sdr_sim_tpu_torch.receiver.acquire_mxu import (
+        acquire_mxu,
+        search_inputs,
+        search_mxu,
+    )
+
+    _, _, codes, dopp, xb = search_prep(x, fs, None, 5000.0, 50.0, 4)
+    runs = [[a.cpu().numpy() for a in search_mxu(
+        *search_inputs(xb, codes, dopp, d), fs)] for d in (device, ref)]
+    err = dict(search_rel=check_search(*runs))
+    want = acquire_mxu(x, fs, dopp_step=50.0, device=ref)
+    err["metric_rel"] = check_acquisition(
+        acquire_mxu(x, fs, dopp_step=50.0, device=device), want)
     err["channels"] = sum(a.detected for a in want)
     return err
 

@@ -15,6 +15,8 @@ import torch
 # 67 TFLOP/s float32 rate counted in FMAs.
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_PER_S = 67e12 / 2
+# The dense int8 tensor-core rate (receiver.acquire_mxu's products).
+INT8_OPS_PER_S = 1979e12
 # The integer operations the synthesis algorithm needs, whatever the
 # kernel's design: per (sample, channel whose gain is not 0), advance the
 # code phase, whole-chip index, its wrap into the 1023-chip code period,

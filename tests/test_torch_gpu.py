@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, the
-sharded paths on the card, and the receiver on the card against the CPU.
+sharded paths on the card, and the receiver (its FFT and int8 searches) on
+the card against the CPU.
 
 Needs a CUDA device (a CUDA kernel has no CPU mode), so it skips here.
 This file imports no JAX, so on a machine without JAX it runs as
@@ -22,6 +23,7 @@ from gps_sdr_sim_tpu_torch.testing import (
     DATA,
     NAV,
     golden_scenario,
+    mxu_devices_agree,
     random_wire,
     receiver_devices_agree,
     rx_capture,
@@ -254,6 +256,18 @@ def test_receiver_card_matches_cpu():
         pytest.skip("needs a CUDA device")
     x = rx_capture(rx_scenario(2.0), "cuda", "cuda")
     assert receiver_devices_agree(x, "cuda")["channels"] == 13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fs", [2.048e6, 1.023e6])
+def test_acquire_mxu_card_matches_cpu(fs):
+    """acquire_mxu's int8 search and results on the card against the CPU,
+    on 0.3 s captured by the CUDA kernel; at 1.023 Msps (S = 1023) the
+    operands of torch._int_mm are zero-padded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = rx_capture(rx_scenario(0.3, fs=fs), "cuda", "cuda")
+    assert mxu_devices_agree(x, fs, "cuda")["channels"] == 13
 
 
 def _golden_batch(name, n_epochs=3):
