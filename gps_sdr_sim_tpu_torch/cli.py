@@ -11,7 +11,11 @@ time-shard files and a manifest (with --shards, --resume and --concat), and
 --multihost joins a torch.distributed (gloo) group whose processes write
 disjoint shards. --profile DIR writes a torch.profiler trace of the run (CPU
 activity, and the card's kernels when --device is a CUDA device) into DIR
-as a Chrome trace.
+as a Chrome trace, with the program's named spans (spans.NAMES: runner.run,
+runner.plan and inside it the planner and the enqueue, runner.fetch,
+runner.write, runner.drain), which record only while a profiler does;
+runner.plan, runner.fetch and runner.write carry their batch's number as
+the argument `batch`.
 """
 
 from __future__ import annotations
@@ -97,7 +101,11 @@ def _usage():
         "  --concat            After sharding, assemble -o from the shards\n"
         "  --multihost <spec>  coord_addr:port,process_id,num_processes --\n"
         "                      join a torch.distributed (gloo) group\n"
-        "  --profile <dir>     Write a torch.profiler trace of the run\n",
+        "  --profile <dir>     Write a torch.profiler trace of the run, with\n"
+        "                      the program's spans (runner.plan: plan.*,\n"
+        "                      synth.*, shard.stack, quantize.pack; then\n"
+        "                      runner.fetch, runner.write), which record\n"
+        "                      only while a profiler does\n",
         file=sys.stderr)
 
 
@@ -401,7 +409,8 @@ def _main(ns, phases) -> int:
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    # Shapes on, so that each runner span shows its batch's number.
+    prof = profile(activities=activities, record_shapes=True)
     prof.start()
     try:
         return _run_either(ns, cfg, scn, fp, close_fp, device, phases)

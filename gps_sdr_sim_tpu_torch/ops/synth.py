@@ -47,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gps_sdr_sim_tpu_torch import spans
 from gps_sdr_sim_tpu_torch.constants import CA_SEQ_LEN, MAX_CHAN, SUBBLOCK
 from gps_sdr_sim_tpu_torch.ops.plan import WIRE_LANES, pack_epoch_wire
 from gps_sdr_sim_tpu_torch.ops.synth_cuda import ABLATE_BITS
@@ -152,8 +153,11 @@ def stage_epochs(eb, device) -> Staged:
     if sys.byteorder != "little":
         raise RuntimeError("the epoch wire is a little-endian byte view")
     device = torch.device(device)
-    return Staged(upload_wire(pack_epoch_wire(eb), device),
-                  ca_device(eb.ca_words, device), max(eb.n_chan, 1))
+    with spans.span("plan.pack_epoch_wire"):
+        wire = pack_epoch_wire(eb)
+    with spans.span("synth.upload"):
+        return Staged(upload_wire(wire, device),
+                      ca_device(eb.ca_words, device), max(eb.n_chan, 1))
 
 
 def upload(a: np.ndarray, device) -> torch.Tensor:
@@ -754,9 +758,10 @@ def synth_staged_packed(staged: Staged, n_out: int, fmt: int = 16,
     as synth_wire's (the plain version records nothing)."""
     args = (staged.wire, staged.ca_words, staged.n_chan, n_out, fmt,
             nav_gather)
-    if plain:
-        return synth_wire_ref(*args)
-    return synth_wire(*args, timing=timing)
+    with spans.span("synth.launch"):
+        if plain:
+            return synth_wire_ref(*args)
+        return synth_wire(*args, timing=timing)
 
 
 def _check_rows(rows: torch.Tensor, ca_words: torch.Tensor) -> None:

@@ -31,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from gps_sdr_sim_tpu_torch import spans
 from gps_sdr_sim_tpu_torch.ops import synth, synth_closed
 from gps_sdr_sim_tpu_torch.ops.plan import (
     DeviceBatch,
@@ -67,13 +68,14 @@ def synth_epochs_sharded(eb, n_out: int, mesh: Mesh, plain: bool = False,
     synth_batch_sharded)."""
     n_time = mesh.shape[TIME_AXIS]
     n_chan_dev = mesh.shape[CHAN_AXIS]
-    wire = pack_epoch_wire(eb)
-    B, C, _ = wire.shape
-    b_loc = -(-B // n_time)
-    c_loc = -(-max(C, 1) // n_chan_dev)
-    wire = np.pad(wire, ((0, b_loc * n_time - B),
-                         (0, c_loc * n_chan_dev - C), (0, 0)))
-    ca = np.pad(eb.ca_words, ((0, c_loc * n_chan_dev - C), (0, 0)))
+    with spans.span("plan.pack_epoch_wire"):
+        wire = pack_epoch_wire(eb)
+        B, C, _ = wire.shape
+        b_loc = -(-B // n_time)
+        c_loc = -(-max(C, 1) // n_chan_dev)
+        wire = np.pad(wire, ((0, b_loc * n_time - B),
+                             (0, c_loc * n_chan_dev - C), (0, 0)))
+        ca = np.pad(eb.ca_words, ((0, c_loc * n_chan_dev - C), (0, 0)))
     if n_chan_dev == 1:
         kernel = synth.synth_wire_planes_ref if plain \
             else synth.synth_wire_planes
@@ -89,10 +91,12 @@ def synth_epochs_sharded(eb, n_out: int, mesh: Mesh, plain: bool = False,
             break
         outs = []
         for c, dev in enumerate(row):
-            w = synth.upload_wire(
-                wire[e0:e0 + b_loc, c * c_loc:(c + 1) * c_loc], dev)
-            k = synth.ca_device(ca[c * c_loc:(c + 1) * c_loc], dev)
-            outs.append(kernel(w, k, c_loc, n_out, nav_gather))
+            with spans.span("synth.upload"):
+                w = synth.upload_wire(
+                    wire[e0:e0 + b_loc, c * c_loc:(c + 1) * c_loc], dev)
+                k = synth.ca_device(ca[c * c_loc:(c + 1) * c_loc], dev)
+            with spans.span("synth.launch"):
+                outs.append(kernel(w, k, c_loc, n_out, nav_gather))
         launched.append((row[0], min(b_loc, B - e0), outs))
 
     return _pieces(launched, n_out, reduce=n_chan_dev > 1)
@@ -150,13 +154,14 @@ def _pieces(launched: list, n_out: int, reduce: bool) -> list:
     _reduce_chan; else there is one chan shard and its planes are int16."""
     pieces = []
     for dev0, valid, outs in launched:
-        if reduce:
-            i16 = _reduce_chan([o[0] for o in outs], dev0)
-            q16 = _reduce_chan([o[1] for o in outs], dev0)
-        else:
-            ((i16, q16),) = outs
-        pieces.append(torch.stack([i16[:valid, :n_out], q16[:valid, :n_out]],
-                                  dim=-1))
+        with spans.span("shard.stack"):
+            if reduce:
+                i16 = _reduce_chan([o[0] for o in outs], dev0)
+                q16 = _reduce_chan([o[1] for o in outs], dev0)
+            else:
+                ((i16, q16),) = outs
+            pieces.append(torch.stack([i16[:valid, :n_out],
+                                       q16[:valid, :n_out]], dim=-1))
     return pieces
 
 
@@ -175,9 +180,11 @@ def synth_batch_sharded(db: DeviceBatch, n_out: int, mesh: Mesh) -> list:
     for dev0, valid, blocks in _shards(db, mesh):
         parts = []
         for dev, blk in blocks:
-            acc = synth_closed.accumulate(*synth_closed.batch_tensors(blk,
-                                                                      dev))
-            parts.append(tuple(a.reshape(a.shape[0], -1) for a in acc))
+            with spans.span("synth.upload"):
+                args = synth_closed.batch_tensors(blk, dev)
+            with spans.span("synth.launch"):
+                acc = synth_closed.accumulate(*args)
+                parts.append(tuple(a.reshape(a.shape[0], -1) for a in acc))
         launched.append((dev0, valid, parts))
     return _pieces(launched, n_out, reduce=True)
 

@@ -30,6 +30,7 @@ from typing import BinaryIO, Callable, Optional
 import numpy as np
 import torch
 
+from gps_sdr_sim_tpu_torch import spans
 from gps_sdr_sim_tpu_torch.models.scenario import Scenario
 from gps_sdr_sim_tpu_torch.ops.plan import (
     DeviceBatch,
@@ -56,12 +57,14 @@ _QUEUE_DEPTH = 4
 
 @dataclass
 class RunStats:
+    """Host seconds of a run on time.perf_counter_ns, each region's read
+    pair shared with its span (spans.py) while a profiler records."""
     total_samples: int = 0
-    wall_seconds: float = 0.0
+    wall_seconds: float = 0.0   # runner.run
     device_batches: int = 0
-    plan_seconds: float = 0.0   # host planning and enqueueing (no waits)
-    fetch_seconds: float = 0.0  # blocked on the device: kernel + readback
-    write_seconds: float = 0.0  # file writes
+    plan_seconds: float = 0.0   # runner.plan: planning and enqueueing
+    fetch_seconds: float = 0.0  # runner.fetch: blocked on the readback
+    write_seconds: float = 0.0  # runner.write: host copy and file writes
 
     @property
     def samples_per_second(self) -> float:
@@ -119,6 +122,26 @@ def _pad_batch(db: DeviceBatch, target_b: int) -> DeviceBatch:
     return pad_epoch_axis(db, target_b)
 
 
+class _Region:
+    """A RunStats region: `ns` read on time.perf_counter_ns always, and the
+    same reads close the region's span while a profiler records."""
+    __slots__ = ("name", "batch", "ns", "_rng", "_t0")
+
+    def __init__(self, name: str, batch=None):
+        self.name = name
+        self.batch = batch
+
+    def __enter__(self):
+        self._rng = spans.begin(self.name, self.batch)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.ns = time.perf_counter_ns() - self._t0
+        spans.end(self._rng, self.name, self.ns)
+        return False
+
+
 def resolve_device(impl: str, device) -> torch.device:
     """The device a run of `impl` uses; raises ValueError or RuntimeError
     if it cannot run there (no silent fallback to the CPU)."""
@@ -172,16 +195,31 @@ def synth_batch_outputs(scn: Scenario, seg, e: int, e1: int,
             synth_epochs_sharded,
         )
     if impl.startswith("closed"):
-        db = _pad_batch(plan_batch(seg, e, e1, n, scn.delt), batch_epochs)
-        iq = (synth_batch_sharded(db, n, mesh) if sharded
-              else [synth_closed.synth_batch(db, n, device)])
-        return [pack(p, fmt) for p in iq]
-    eb = pad_epochs(plan_epochs(seg, e, e1, scn.delt), batch_epochs)
+        with spans.span("plan.plan_batch"):
+            db = plan_batch(seg, e, e1, n, scn.delt)
+        with spans.span("plan.pad_epochs"):
+            db = _pad_batch(db, batch_epochs)
+        if sharded:
+            return _pack(synth_batch_sharded(db, n, mesh), fmt)
+        with spans.span("synth.upload"):
+            args = synth_closed.batch_tensors(db, device)
+        with spans.span("synth.launch"):
+            iq = synth_closed.synth_iq16(*args, n_out=n)
+        return _pack([iq], fmt)
+    with spans.span("plan.plan_epochs"):
+        eb = plan_epochs(seg, e, e1, scn.delt)
+    with spans.span("plan.pad_epochs"):
+        eb = pad_epochs(eb, batch_epochs)
     if sharded:
-        return [pack(p, fmt) for p in synth_epochs_sharded(
-            eb, n, mesh, plain, nav_gather)]
+        return _pack(synth_epochs_sharded(eb, n, mesh, plain, nav_gather),
+                     fmt)
     return [synth.synth_staged_packed(synth.stage_epochs(eb, device), n, fmt,
                                       plain, nav_gather)]
+
+
+def _pack(pieces: list, fmt: int) -> list:
+    with spans.span("quantize.pack"):
+        return [pack(p, fmt) for p in pieces]
 
 
 def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
@@ -217,48 +255,53 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
     fmt = scn.config.data_format
     nav_gather = synth.nav_gather_enabled()
     stats = RunStats()
-    t_start = time.time()
-    # (pieces: [(host array or tensor, copy-done event or None)], valid
-    # epochs)
+    # (batch, pieces: [(host array or tensor, copy-done event or None)],
+    # valid epochs)
     pending = deque()
 
     def flush(item):
-        pieces, valid = item
-        t0 = time.time()
-        for _, done in pieces:
-            if done is not None:
-                done.synchronize()
-        t1 = time.time()
-        for host, _ in pieces:
-            rows = host.numpy()[:valid]
-            if len(rows) == 0:
-                break
-            valid -= len(rows)
-            if words:
-                rows = words_to_bytes(rows, n, fmt)
-            fp.write(np.ascontiguousarray(rows).reshape(-1).view(np.uint8)
-                     .data)
-        stats.fetch_seconds += t1 - t0
-        stats.write_seconds += time.time() - t1
+        k, pieces, valid = item
+        with _Region("runner.fetch", k) as fetch:
+            for _, done in pieces:
+                if done is not None:
+                    done.synchronize()
+        with _Region("runner.write", k) as write:
+            for host, _ in pieces:
+                rows = host.numpy()[:valid]
+                if len(rows) == 0:
+                    break
+                valid -= len(rows)
+                if words:
+                    with spans.span("quantize.words_to_bytes"):
+                        rows = np.ascontiguousarray(
+                            words_to_bytes(rows, n, fmt))
+                fp.write(np.ascontiguousarray(rows).reshape(-1)
+                         .view(np.uint8).data)
+        stats.fetch_seconds += fetch.ns / 1e9
+        stats.write_seconds += write.ns / 1e9
 
-    for seg, e, e1 in iter_seg_batches(scn, lo, hi, batch_epochs):
-        t_plan = time.time()
-        outs = synth_batch_outputs(scn, seg, e, e1, batch_epochs, impl,
-                                   device, mesh, nav_gather)
-        pieces = [fetch_async(o) if o.device.type == "cuda" else (o, None)
-                  for o in outs]
-        stats.plan_seconds += time.time() - t_plan
-        if len(pending) >= _QUEUE_DEPTH:
-            flush(pending.popleft())
-        pending.append((pieces, e1 - e))
-        stats.device_batches += 1
-        stats.total_samples += (e1 - e) * n
-        log(f"\rTime into run = {(seg.first_epoch + e1 - 1) * 0.1:4.1f}")
+    with _Region("runner.run") as whole:
+        for k, (seg, e, e1) in enumerate(
+                iter_seg_batches(scn, lo, hi, batch_epochs)):
+            with _Region("runner.plan", k) as plan:
+                outs = synth_batch_outputs(scn, seg, e, e1, batch_epochs,
+                                           impl, device, mesh, nav_gather)
+                with spans.span("runner.fetch_async"):
+                    pieces = [fetch_async(o) if o.device.type == "cuda"
+                              else (o, None) for o in outs]
+            stats.plan_seconds += plan.ns / 1e9
+            if len(pending) >= _QUEUE_DEPTH:
+                flush(pending.popleft())
+            pending.append((k, pieces, e1 - e))
+            stats.device_batches += 1
+            stats.total_samples += (e1 - e) * n
+            log(f"\rTime into run = {(seg.first_epoch + e1 - 1) * 0.1:4.1f}")
 
-    while pending:
-        flush(pending.popleft())
+        with spans.span("runner.drain"):
+            while pending:
+                flush(pending.popleft())
 
-    stats.wall_seconds = time.time() - t_start
+    stats.wall_seconds = whole.ns / 1e9
     return stats
 
 
