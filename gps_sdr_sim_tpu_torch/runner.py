@@ -2,12 +2,13 @@
 
 Counterpart of gps_sdr_sim_tpu/runner.py. Per batch of 0.1 s epochs the
 host plans (NumPy, ops/plan.py), uploads the wire from pinned memory
-without waiting, launches the synthesis, and starts an asynchronous
-device-to-host copy, all on the device's current stream; so the host plans
-batch k+1 while the device runs batch k. The writer drains batches in
-order, so the byte stream is the reference's sequential one. Batches are
-padded to `batch_epochs` with gain-0 epochs, and only the valid epochs are
-written.
+without waiting and launches the synthesis, on the device's current
+stream, then starts an asynchronous device-to-host copy on a copy stream
+of the device's own (fetch_async); so the host plans batch k+1 while the
+device runs batch k, and batch k+1's synthesis runs while batch k crosses
+to the host. The writer drains batches in order, so the byte stream is the
+reference's sequential one. Batches are padded to `batch_epochs` with
+gain-0 epochs, and only the valid epochs are written.
 
 The closed impls plan each batch as a DeviceBatch instead (plan_batch: the
 per-sub-block rebase on the host) and synthesize it with the closed form in
@@ -158,16 +159,22 @@ def resolve_device(impl: str, device) -> torch.device:
     return device
 
 
-def fetch_async(out: torch.Tensor):
-    """Start the copy of device words `out` into pinned host memory.
+def fetch_async(out: torch.Tensor, copy_stream):
+    """Start the copy of device output `out` into pinned host memory on
+    `copy_stream`, a side stream of out's device, so that it runs beside
+    the work queued after it on the device's current stream.
 
-    Returns (host tensor, event). The copy is queued on the current stream
-    of out's device, which need not be the current device, so the event is
-    recorded on that same stream: its completion marks the copy's."""
-    host = out.to("cpu", non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(out.device))
-    return host, done
+    Returns (host tensor, event). The copy stream first waits for the
+    current stream of out's device (which need not be the current device),
+    where `out` was written; the event, recorded on the copy stream after
+    the copy, marks the copy's completion; and `out` is recorded as in use
+    on the copy stream, so that the caching allocator hands its memory to
+    no later batch before the copy has read it."""
+    copy_stream.wait_stream(torch.cuda.current_stream(out.device))
+    with torch.cuda.stream(copy_stream):
+        host = out.to("cpu", non_blocking=True)
+    out.record_stream(copy_stream)
+    return host, copy_stream.record_event()
 
 
 def writes_words(impl: str) -> bool:
@@ -258,6 +265,16 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
     # (batch, pieces: [(host array or tensor, copy-done event or None)],
     # valid epochs)
     pending = deque()
+    # One copy stream per card that holds a piece, made at the call's
+    # first batch and kept for all of them.
+    copy_streams = {}
+
+    def fetch(out):
+        if out.device.type != "cuda":
+            return out, None
+        if out.device not in copy_streams:
+            copy_streams[out.device] = torch.cuda.Stream(out.device)
+        return fetch_async(out, copy_streams[out.device])
 
     def flush(item):
         k, pieces, valid = item
@@ -287,8 +304,7 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
                 outs = synth_batch_outputs(scn, seg, e, e1, batch_epochs,
                                            impl, device, mesh, nav_gather)
                 with spans.span("runner.fetch_async"):
-                    pieces = [fetch_async(o) if o.device.type == "cuda"
-                              else (o, None) for o in outs]
+                    pieces = [fetch(o) for o in outs]
             stats.plan_seconds += plan.ns / 1e9
             if len(pending) >= _QUEUE_DEPTH:
                 flush(pending.popleft())

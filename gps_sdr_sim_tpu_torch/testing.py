@@ -63,10 +63,12 @@ def load_goldens() -> dict:
         return {k: z[k] for k in z.files}
 
 
-def golden_scenario(name: str):
-    """The 0.3 s / 1 Msps scenario the golden `name` was written from."""
+def golden_scenario(name: str, duration: float = 0.3):
+    """The 0.3 s / 1 Msps scenario the golden `name` was written from, or
+    the same configuration over another duration."""
     return build_scenario(ScenarioConfig(
-        nav_file=str(NAV), duration=0.3, samp_freq=1.0e6, **SCENARIOS[name]))
+        nav_file=str(NAV), duration=duration, samp_freq=1.0e6,
+        **SCENARIOS[name]))
 
 
 def synthesize(name: str, impl: str, device) -> np.ndarray:

@@ -92,6 +92,60 @@ def test_runner_on_a_card_other_than_the_current_one():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["cuda", "cuda-sharded"])
+def test_runner_copy_stream_keeps_the_bytes(impl):
+    """Each batch is read back on a copy stream beside the next batch's
+    synthesis (cuda-sharded on a 1x1 mesh). With one-epoch batches the
+    writer's queue fills and the caching allocator hands freed blocks to
+    later batches, so a copy that read its piece before the piece was
+    written, or a piece reused before its copy had read it, shows as bytes
+    unlike the CPU run's; the whole scenario as one batch runs the path
+    once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    scn = golden_scenario("circle16", duration=1.0)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(1, 1, [dev]) if impl == "cuda-sharded" else None
+
+    def run(impl, device, batch_epochs, mesh=None):
+        buf = io.BytesIO()
+        run_simulation(scn, buf, batch_epochs=batch_epochs,
+                       log=lambda s: None, impl=impl, device=device,
+                       mesh=mesh)
+        return buf.getvalue()
+
+    want = run("torch", "cpu", scn.n_output_epochs)
+    for batch_epochs in (1, scn.n_output_epochs):
+        assert run(impl, dev, batch_epochs, mesh) == want, batch_epochs
+
+
+@pytest.mark.gpu
+def test_fetch_async_waits_for_the_piece_and_keeps_it():
+    """fetch_async's copy waits for the piece's writer on the current
+    stream, held back here by a sleep, and the piece's memory goes to no
+    new tensor before the copy has read it: a tensor of its size is
+    allocated and overwritten on the current stream right after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gps_sdr_sim_tpu_torch.runner import fetch_async
+
+    dev = torch.device("cuda", 0)
+    n = 1 << 25  # 128 MiB of int32: a copy of about 2 ms
+    want = torch.arange(n, dtype=torch.int32)
+    src = want.to(dev)
+    piece = torch.empty(n, dtype=torch.int32, device=dev)
+    copy_stream = torch.cuda.Stream(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda._sleep(100_000_000)
+    piece.copy_(src)
+    host, done = fetch_async(piece, copy_stream)
+    del piece
+    torch.full((n,), -1, dtype=torch.int32, device=dev)
+    done.synchronize()
+    assert torch.equal(host, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["planes", "raw"])
 def test_cuda_iq_modes_match_plain_versions(mode):
     """The int16-plane and raw int32 modes, word for word, with gains up to

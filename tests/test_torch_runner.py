@@ -337,29 +337,108 @@ def test_runner_rejects_cuda_impl_on_cpu():
 
 
 def test_fetch_event_recorded_on_outputs_stream(monkeypatch):
-    """The readback's event goes on the stream of the output's device,
-    where the copy is queued, not on the current device's stream."""
+    """The readback of a piece on cuda:1 goes on the copy stream passed in
+    for cuda:1: that stream first waits for cuda:1's current stream (not
+    the current device's), where the piece was written; the copy and its
+    done event go on it; and the piece is recorded as in use on it."""
     from gps_sdr_sim_tpu_torch.runner import fetch_async
 
-    recorded = []
+    log = []
 
-    class Event:
-        def record(self, stream=None):
-            recorded.append(stream)
+    class Stream:
+        def __init__(self, name):
+            self.name = name
+
+        def wait_stream(self, other):
+            log.append(("wait", self.name, other))
+
+        def record_event(self):
+            log.append(("event", self.name))
+            return "done"
+
+    class StreamContext:
+        def __init__(self, stream):
+            self.stream = stream
+
+        def __enter__(self):
+            log.append(("enter", self.stream.name))
+
+        def __exit__(self, *exc):
+            log.append(("exit", self.stream.name))
 
     class Out:
         device = torch.device("cuda", 1)
 
         def to(self, where, non_blocking=False):
             assert where == "cpu" and non_blocking
+            log.append(("copy",))
             return "host"
 
-    monkeypatch.setattr(torch.cuda, "Event", Event)
+        def record_stream(self, stream):
+            log.append(("record_stream", stream.name))
+
     monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: ("stream of", device))
-    host, done = fetch_async(Out())
-    assert host == "host" and isinstance(done, Event)
-    assert recorded == [("stream of", torch.device("cuda", 1))]
+                        lambda device=None: ("current stream of", device))
+    monkeypatch.setattr(torch.cuda, "stream", StreamContext)
+    host, done = fetch_async(Out(), Stream("copy:1"))
+    assert (host, done) == ("host", "done")
+    assert log[:4] == [
+        ("wait", "copy:1", ("current stream of", torch.device("cuda", 1))),
+        ("enter", "copy:1"), ("copy",), ("exit", "copy:1")]
+    assert sorted(log[4:]) == [("event", "copy:1"),
+                               ("record_stream", "copy:1")]
+
+
+def test_runner_makes_one_copy_stream_per_card_per_call(monkeypatch):
+    """run_epoch_range reads every batch's pieces back on one copy stream
+    per card that holds a piece, made once in a call and reused by each of
+    its batches; a CPU piece is written as it is, with no copy."""
+    from gps_sdr_sim_tpu_torch import runner
+    from gps_sdr_sim_tpu_torch.testing import golden_scenario
+
+    made, fetched = [], []
+
+    class Stream:
+        def __init__(self, device):
+            made.append(self)
+            self.device = device
+
+    class Piece:
+        def __init__(self, device, rows):
+            self.device = device
+            self.rows = rows
+
+    def outputs(scn, seg, e, e1, batch_epochs, impl, device, mesh,
+                nav_gather):
+        rows = torch.full((e1 - e, 1, 2), e, dtype=torch.int16)
+        return [Piece(torch.device("cuda", 1), rows),
+                Piece(torch.device("cuda", 0), rows[:0]),
+                rows[:0]]
+
+    def fetch_async(out, copy_stream):
+        assert copy_stream.device == out.device
+        fetched.append(copy_stream)
+        return out.rows, None
+
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(runner, "synth_batch_outputs", outputs)
+    monkeypatch.setattr(runner, "fetch_async", fetch_async)
+    scn = golden_scenario("static16", duration=0.7)
+    n = scn.n_output_epochs
+    assert n > 4  # more batches than the writer's queue holds
+    for call in range(2):
+        buf = io.BytesIO()
+        stats = runner.run_epoch_range(scn, buf, 0, n, batch_epochs=1,
+                                       log=lambda s: None, impl="closed",
+                                       device="cpu")
+        assert stats.device_batches == n
+        assert np.frombuffer(buf.getvalue(), np.int16).tolist() == \
+            [e for e in range(n) for _ in range(2)]
+        streams = made[2 * call:]
+        assert len(streams) == 2
+        assert {s.device for s in streams} == {torch.device("cuda", 0),
+                                                torch.device("cuda", 1)}
+        assert fetched[2 * n * call:] == [streams[0], streams[1]] * n
 
 
 _NO_JAX = r"""
