@@ -3,9 +3,9 @@ their checksum.
 
 Counterpart of gps_sdr_sim_tpu/ops/quantize.py. On the single-device path
 the kernel epilogue already writes the final SC16/SC08/SC01 stream
-(ops/synth.py) and only words_to_bytes is needed; the sharded path
-(parallel/shard.py) returns [B, N, 2] int16 samples, which pack() turns
-into the format's bytes on their device (gpssim.c:2266-2288):
+(ops/synth.py) and words_to_packed only cuts each epoch's padding off its
+words; the sharded and closed paths return [B, N, 2] int16 samples, which
+pack() turns into the format's bytes on their device (gpssim.c:2266-2288):
  - SC16: int16 I/Q pairs as they are;
  - SC08: arithmetic >> 4 of each int16 sample, wrapped to int8;
  - SC01: the sign bit (sample > 0) of each interleaved I/Q value packed
@@ -55,9 +55,10 @@ def pack(iq: torch.Tensor, data_format: int) -> torch.Tensor:
     raise ValueError(f"Invalid I/Q data format: {data_format}")
 
 
-# Element type each format's checksum reads: SC16 int16 samples, SC08 int8
-# samples, SC01 the packed bytes.
-_CHECKSUM_DTYPE = {16: torch.int16, 8: torch.int8, 1: torch.uint8}
+# Element type of each format's packed samples (pack's output), which its
+# checksum reads: SC16 int16 samples, SC08 int8 samples, SC01 the packed
+# bytes.
+_PACKED_DTYPE = {16: torch.int16, 8: torch.int8, 1: torch.uint8}
 
 
 def words_to_bytes(words: np.ndarray, n_out: int, fmt: int) -> np.ndarray:
@@ -65,6 +66,17 @@ def words_to_bytes(words: np.ndarray, n_out: int, fmt: int) -> np.ndarray:
     until the caller materializes it)."""
     b = words.shape[0]
     return words.view(np.uint8).reshape(b, -1)[:, :packed_bytes(n_out, fmt)]
+
+
+def words_to_packed(words: torch.Tensor, n_out: int, fmt: int) -> torch.Tensor:
+    """[B, W] int32 words -> the batch in pack()'s form, made contiguous on
+    the words' device and current stream: SC16 int16 [B, n_out, 2], SC08
+    int8 [B, n_out, 2], SC01 uint8 [B, n_out // 4] (a trailing partial byte
+    dropped, as pack_sc01 drops it)."""
+    b = words.shape[0]
+    v = words.view(_PACKED_DTYPE[fmt])
+    v = v[:, :packed_bytes(n_out, fmt) // v.element_size()].contiguous()
+    return v if fmt == 1 else v.reshape(b, n_out, 2)
 
 
 def checksum_packed(words: torch.Tensor, valid_epochs: int, n_out: int,
@@ -80,7 +92,7 @@ def checksum_packed(words: torch.Tensor, valid_epochs: int, n_out: int,
     it and held to it by the tests; what the runner writes is checksummed
     with checksum_bytes."""
     w = words[:valid_epochs]
-    v = w.view(_CHECKSUM_DTYPE[fmt]).reshape(w.shape[0], -1)
+    v = w.view(_PACKED_DTYPE[fmt]).reshape(w.shape[0], -1)
     v = v[:, :packed_bytes(n_out, fmt) // v.element_size()]
     return v.sum(dtype=torch.int64), torch.count_nonzero(v)
 
@@ -88,7 +100,7 @@ def checksum_packed(words: torch.Tensor, valid_epochs: int, n_out: int,
 def checksum_bytes(data, fmt: int) -> tuple[int, int]:
     """checksum_packed over a writable, non-empty host buffer of valid
     epochs (what the runner writes), as exact Python ints."""
-    v = torch.frombuffer(data, dtype=_CHECKSUM_DTYPE[fmt])
+    v = torch.frombuffer(data, dtype=_PACKED_DTYPE[fmt])
     return int(v.sum(dtype=torch.int64)), int(torch.count_nonzero(v))
 
 

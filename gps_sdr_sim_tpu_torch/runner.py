@@ -14,10 +14,12 @@ The closed impls plan each batch as a DeviceBatch instead (plan_batch: the
 per-sub-block rebase on the host) and synthesize it with the closed form in
 plain torch (ops/synth_closed.py), the counterpart of the JAX package's
 xla impls. The sharded impls run parallel/shard.py over a mesh of devices.
-Both give [B, n_out, 2] samples (one piece per time shard when sharded),
-packed into the format's bytes on their devices (ops/quantize.pack); each
-piece is read back with its own event, and a batch is written once every
-piece has landed.
+Every impl hands the writer its batch in one form, pieces of the format's
+samples as ops/quantize.pack gives them, made on their devices: the kernel's
+packed words cut to each epoch's valid samples (quantize.words_to_packed),
+or [B, n_out, 2] samples (one piece per time shard when sharded) packed into
+the format. Each piece is read back with its own event, and a batch is
+written, straight from the pieces' host memory, once every piece has landed.
 """
 
 from __future__ import annotations
@@ -34,14 +36,13 @@ import torch
 from gps_sdr_sim_tpu_torch import spans
 from gps_sdr_sim_tpu_torch.models.scenario import Scenario
 from gps_sdr_sim_tpu_torch.ops.plan import (
-    DeviceBatch,
     pad_epoch_axis,
     pad_epochs,
     plan_batch,
     plan_epochs,
 )
 from gps_sdr_sim_tpu_torch.ops import synth, synth_closed
-from gps_sdr_sim_tpu_torch.ops.quantize import pack, words_to_bytes
+from gps_sdr_sim_tpu_torch.ops.quantize import pack, words_to_packed
 
 # cuda / torch: the packed-word kernel or its plain version on one device;
 # cuda-sharded / torch-sharded: the same over a mesh (parallel/shard.py),
@@ -65,7 +66,7 @@ class RunStats:
     device_batches: int = 0
     plan_seconds: float = 0.0   # runner.plan: planning and enqueueing
     fetch_seconds: float = 0.0  # runner.fetch: blocked on the readback
-    write_seconds: float = 0.0  # runner.write: host copy and file writes
+    write_seconds: float = 0.0  # runner.write: the sink's writes
 
     @property
     def samples_per_second(self) -> float:
@@ -116,11 +117,6 @@ def iter_segment_batches(segments, lo: int, hi: int, batch_epochs: int):
 def iter_seg_batches(scn: Scenario, lo: int, hi: int, batch_epochs: int):
     """iter_segment_batches over a fully-materialized Scenario."""
     return iter_segment_batches(scn.segments, lo, hi, batch_epochs)
-
-
-def _pad_batch(db: DeviceBatch, target_b: int) -> DeviceBatch:
-    """Pad a batch to `target_b` epochs (zero gain => silent padding)."""
-    return pad_epoch_axis(db, target_b)
 
 
 class _Region:
@@ -177,21 +173,14 @@ def fetch_async(out: torch.Tensor, copy_stream):
     return host, copy_stream.record_event()
 
 
-def writes_words(impl: str) -> bool:
-    """Whether synth_batch_outputs gives `impl`'s batch as the kernel's
-    [B, W] int32 packed words (cuda, torch), rather than pieces of packed
-    [B, n_out, 2] samples."""
-    return impl in ("cuda", "torch")
-
-
 def synth_batch_outputs(scn: Scenario, seg, e: int, e1: int,
                         batch_epochs: int, impl: str, device, mesh=None,
                         nav_gather: bool = False) -> list:
     """Plan epochs [e, e1) of segment `seg`, padded to `batch_epochs`, and
     enqueue their synthesis in `scn`'s format on the device, without
-    waiting. Returns the device outputs: one [B, W] int32 word tensor for
-    cuda / torch (writes_words), else the packed samples of each piece:
-    one for closed, one per time shard of `mesh` for the sharded impls."""
+    waiting. Returns the device outputs, pieces in ops.quantize.pack's
+    form: one for cuda, torch and closed, one per time shard of `mesh` for
+    the sharded impls."""
     n = scn.iq_buff_size
     fmt = scn.config.data_format
     plain = impl.startswith("torch")
@@ -205,7 +194,7 @@ def synth_batch_outputs(scn: Scenario, seg, e: int, e1: int,
         with spans.span("plan.plan_batch"):
             db = plan_batch(seg, e, e1, n, scn.delt)
         with spans.span("plan.pad_epochs"):
-            db = _pad_batch(db, batch_epochs)
+            db = pad_epoch_axis(db, batch_epochs)
         if sharded:
             return _pack(synth_batch_sharded(db, n, mesh), fmt)
         with spans.span("synth.upload"):
@@ -220,8 +209,10 @@ def synth_batch_outputs(scn: Scenario, seg, e: int, e1: int,
     if sharded:
         return _pack(synth_epochs_sharded(eb, n, mesh, plain, nav_gather),
                      fmt)
-    return [synth.synth_staged_packed(synth.stage_epochs(eb, device), n, fmt,
-                                      plain, nav_gather)]
+    words = synth.synth_staged_packed(synth.stage_epochs(eb, device), n, fmt,
+                                      plain, nav_gather)
+    with spans.span("quantize.pack"):
+        return [words_to_packed(words, n, fmt)]
 
 
 def _pack(pieces: list, fmt: int) -> list:
@@ -248,7 +239,6 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
     if log is None:
         log = lambda s: print(s, end="", file=sys.stderr, flush=True)
     device = resolve_device(impl, device)
-    words = writes_words(impl)
     if impl.endswith("-sharded"):
         from gps_sdr_sim_tpu_torch.parallel.mesh import auto_mesh
 
@@ -259,11 +249,10 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
             raise ValueError(f"impl '{impl}' runs the CUDA kernel and needs "
                              f"a mesh of CUDA devices")
     n = scn.iq_buff_size
-    fmt = scn.config.data_format
     nav_gather = synth.nav_gather_enabled()
     stats = RunStats()
-    # (batch, pieces: [(host array or tensor, copy-done event or None)],
-    # valid epochs)
+    # (batch, pieces: [(host tensor, copy-done event or None)], valid
+    # epochs)
     pending = deque()
     # One copy stream per card that holds a piece, made at the call's
     # first batch and kept for all of them.
@@ -288,12 +277,9 @@ def run_epoch_range(scn: Scenario, fp: BinaryIO, lo: int, hi: int,
                 if len(rows) == 0:
                     break
                 valid -= len(rows)
-                if words:
-                    with spans.span("quantize.words_to_bytes"):
-                        rows = np.ascontiguousarray(
-                            words_to_bytes(rows, n, fmt))
-                fp.write(np.ascontiguousarray(rows).reshape(-1)
-                         .view(np.uint8).data)
+                # A contiguous piece's leading rows: reshape and view copy
+                # nothing, so the sink reads the pinned buffer itself.
+                fp.write(rows.reshape(-1).view(np.uint8).data)
         stats.fetch_seconds += fetch.ns / 1e9
         stats.write_seconds += write.ns / 1e9
 

@@ -33,9 +33,8 @@ import torch.autograd.profiler as _profiler
 # plan.pad_epochs) and the enqueue (plan.pack_epoch_wire, synth.upload,
 # synth.launch, shard.stack, quantize.pack, runner.fetch_async); then, when
 # the batch leaves the runner's queue, runner.fetch (the wait on its
-# readback) and runner.write (quantize.words_to_bytes on the packed path,
-# then the sink's write). runner.drain is a call's final flush loop;
-# runner.run the whole call.
+# readback) and runner.write (the sink's write). runner.drain is a call's
+# final flush loop; runner.run the whole call.
 NAMES = (
     "runner.run",
     "runner.plan",
@@ -50,7 +49,6 @@ NAMES = (
     "runner.fetch_async",
     "runner.fetch",
     "runner.write",
-    "quantize.words_to_bytes",
     "runner.drain",
 )
 

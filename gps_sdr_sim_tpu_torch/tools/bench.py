@@ -13,11 +13,11 @@ byte:
               end. Root bench.py's headline, reported under its metric
               name.
   end to end  runner.run_simulation into a null sink, as the CLI runs:
-              the readback, words_to_bytes and the write. The headline.
+              the readback and the write. The headline.
 
 Both passes plan and synthesize each batch through one function, the
 runner's synth_batch_outputs, so the synthesis pass times what users run.
-Their ratio is what the readback and the host copy cost. As in root
+Their ratio is what the readback and the write cost. As in root
 bench.py, each format has one warm-up pass and then 3 / 2 / 2 measure
 passes (SC16 / SC08 / SC01), the best of which counts; two interleaved
 16/8/1 rounds follow. The warm-up's end-to-end bytes go into a checksum
@@ -82,7 +82,6 @@ from gps_sdr_sim_tpu_torch.models.scenario import ScenarioConfig, build_scenario
 from gps_sdr_sim_tpu_torch.ops import synth
 from gps_sdr_sim_tpu_torch.ops.quantize import (
     checksum_bytes,
-    checksum_packed,
     wrap_int32,
 )
 from gps_sdr_sim_tpu_torch.parallel import auto_mesh
@@ -94,7 +93,6 @@ from gps_sdr_sim_tpu_torch.runner import (
     resolve_device,
     run_simulation,
     synth_batch_outputs,
-    writes_words,
 )
 from gps_sdr_sim_tpu_torch.testing import DATA, GOLDEN, NAV
 from gps_sdr_sim_tpu_torch.tools import card
@@ -198,12 +196,8 @@ def synthesis_pass(scn, batch_epochs: int, impl: str, device, mesh=None,
                    nav_gather: bool = False) -> PassResult:
     """Every batch of `scn` synthesized in its format by the runner's
     synth_batch_outputs and checksummed on its device, with no readback
-    but one stack of the sums per device at the end: checksum_packed of
-    the kernel's words for cuda / torch, the sum and nonzero count of each
-    packed piece otherwise."""
-    n = scn.iq_buff_size
-    fmt = scn.config.data_format
-    words = writes_words(impl)
+    but one stack of the sums per device at the end: the sum and nonzero
+    count of each packed piece, checksum_packed's figures."""
     batches = list(iter_seg_batches(scn, 0, scn.n_output_epochs,
                                     batch_epochs))
     sums, nonzeros = {}, {}
@@ -211,10 +205,7 @@ def synthesis_pass(scn, batch_epochs: int, impl: str, device, mesh=None,
     for i, (seg, e0, e1) in enumerate(batches):
         outs = synth_batch_outputs(scn, seg, e0, e1, batch_epochs, impl,
                                    device, mesh, nav_gather)
-        parts = ([(outs[0].device, *checksum_packed(outs[0], e1 - e0, n,
-                                                    fmt))]
-                 if words else _piece_sums(outs, e1 - e0))
-        for dev, s, z in parts:
+        for dev, s, z in _piece_sums(outs, e1 - e0):
             sums.setdefault(dev, []).append(s)
             nonzeros.setdefault(dev, []).append((i, z))
     total = 0

@@ -441,6 +441,91 @@ def test_runner_makes_one_copy_stream_per_card_per_call(monkeypatch):
         assert fetched[2 * n * call:] == [streams[0], streams[1]] * n
 
 
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("samp_freq", [2.6e6, 1_000_100.0])
+@pytest.mark.parametrize("fmt", [16, 8, 1])
+def test_every_impl_gives_pieces_in_pack_form(fmt, samp_freq):
+    """synth_batch_outputs hands the runner one output form: torch (the
+    kernel's words cut on the device), torch-sharded on a 1x1 mesh and
+    closed give the same dtype, shape and values, pack's form, also at an
+    odd rate whose SC01 epochs end in a partial byte (sc01_odd_rate)."""
+    from gps_sdr_sim_tpu_torch.models.scenario import (
+        ScenarioConfig,
+        build_scenario,
+    )
+    from gps_sdr_sim_tpu_torch.parallel.mesh import make_mesh
+    from gps_sdr_sim_tpu_torch.runner import (
+        iter_seg_batches,
+        synth_batch_outputs,
+    )
+    from gps_sdr_sim_tpu_torch.testing import TOKYO
+
+    cpu = torch.device("cpu")
+    scn = build_scenario(ScenarioConfig(
+        nav_file=str(NAV), duration=0.2, samp_freq=samp_freq,
+        static_xyz=TOKYO, data_format=fmt))
+    ((seg, e, e1),) = iter_seg_batches(scn, 0, 2, 2)
+    n = scn.iq_buff_size
+    dtype = {16: torch.int16, 8: torch.int8, 1: torch.uint8}[fmt]
+    shape = (2, n // 4) if fmt == 1 else (2, n, 2)
+    got = {}
+    for impl in ("torch", "torch-sharded", "closed"):
+        mesh = make_mesh(1, 1, [cpu]) if impl.endswith("-sharded") else None
+        (piece,) = synth_batch_outputs(scn, seg, e, e1, 2, impl, cpu, mesh)
+        assert piece.dtype == dtype, impl
+        assert tuple(piece.shape) == shape, impl
+        assert piece.is_contiguous(), impl
+        got[impl] = piece
+    assert torch.count_nonzero(got["closed"]) > 0
+    for impl in ("torch", "torch-sharded"):
+        assert torch.equal(got[impl], got["closed"]), impl
+
+
+def test_flush_writes_each_piece_from_its_own_memory(monkeypatch):
+    """The writer hands the sink each fetched piece's valid rows as a
+    buffer over the piece's own memory, one write a piece, with no host
+    copy; a piece past the batch's valid epochs is not written."""
+    from gps_sdr_sim_tpu_torch import runner
+    from gps_sdr_sim_tpu_torch.testing import golden_scenario
+
+    handed = []
+
+    def outputs(scn, seg, e, e1, batch_epochs, impl, device, mesh,
+                nav_gather):
+        # Two time shards of a two-epoch batch, the second padded past the
+        # valid epochs, then a piece of padding only.
+        pieces = [torch.full((1, 3, 2), e, dtype=torch.int16),
+                  torch.full((2, 3, 2), e + 1, dtype=torch.int16),
+                  torch.zeros((1, 3, 2), dtype=torch.int16)]
+        handed.append(pieces[:e1 - e])
+        return pieces
+
+    class Sink:
+        def __init__(self):
+            self.writes = []
+
+        def write(self, data):
+            self.writes.append(data)
+
+    monkeypatch.setattr(runner, "synth_batch_outputs", outputs)
+    scn = golden_scenario("static16", duration=0.6)
+    n = scn.n_output_epochs
+    assert n % 2 == 1  # the last batch leaves its second shard unwritten
+    sink = Sink()
+    stats = runner.run_epoch_range(scn, sink, 0, n, batch_epochs=2,
+                                   log=lambda s: None, impl="closed",
+                                   device="cpu")
+    written = [p for pieces in handed for p in pieces]
+    assert stats.device_batches == len(handed)
+    assert len(sink.writes) == len(written) == n
+    for data, piece in zip(sink.writes, written):
+        buf = np.frombuffer(data, np.uint8)
+        assert buf.size == 3 * 2 * 2  # one epoch's row
+        assert np.shares_memory(buf, piece.numpy())
+    assert b"".join(bytes(w) for w in sink.writes) == np.repeat(
+        np.arange(n, dtype=np.int16), 6).tobytes()
+
+
 _NO_JAX = r"""
 import sys
 # Any import of jax, of the JAX package, of the root tools or of the root
